@@ -19,12 +19,23 @@ Phases, each of which must pass for the run to exit 0:
    (NLT_TPU_FUSED_STAGE=0, same params): float32 compute to 1e-3 and
    uint8 within 1 LSB; bfloat16 compute at a bf16 tolerance.
 5. Serving latency and frames/sec at bs 1 and bs 4, kernels and plain.
+6. Training at the flagship recipe's full width (dragon_specular.ini:
+   bs 4, 512^2, depth0 16 / depth 256, bf16, barron + LPIPS, AMSGrad
+   lr 1e-3, cached statics): the resampler-backward scatter kernel (K1)
+   against its plain version at the flagship shape and at forced edge
+   cases; the fused stages' gradients, kernel forward against plain
+   forward, at every flagship stage shape at bs 4 in float32 and
+   bfloat16; then whole steps with the launch counters reset (each step
+   must launch 12 contract + 6 expand + 1 scatter kernels), timed,
+   profiled by category, and compared with the same steps through the
+   plain versions of the three ops (float32 and bfloat16).
 
 Prints the card's name and power limit, one JSON line per check and
 timing, a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
 Exits non-zero without printing a result when there is no CUDA device.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -34,10 +45,14 @@ import time
 import numpy as np
 import torch
 
+from nlt_tpu_torch.models.nlt import Model
 from nlt_tpu_torch.ops import _build
 from nlt_tpu_torch.ops import fused_stage as fs
+from nlt_tpu_torch.ops import scatter as sc
+from nlt_tpu_torch.parallel import train as train_mod
 from nlt_tpu_torch.serve import Server
 from nlt_tpu_torch.utils.config import Config
+from nlt_tpu_torch.utils.tree import tree_leaves
 
 RES, DEPTH = 512, 256
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
@@ -52,9 +67,33 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
 #   the activation, every tap's sum and the running total (5 roundings
 #   of 2^-9) and uses the bf16-rounded slope: 2^-5.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
-SOURCE = "nlt_tpu_torch/csrc/fused_stage.cu"
+# K1 against index_add_: float atomics add duplicate rows in no fixed
+# order; O(1) updates, a few per row: 1e-5 of the table's scale. Rows
+# hit once must be exact.
+SCATTER_TOL = 1e-5
+# Stage gradients through the kernel forward against autograd of the
+# plain forward, relative L2 per gradient (an entry whose LeakyReLU mask
+# flips, where the two forwards' y differ in sign, moves single entries
+# by up to 0.7 of their size, so the largest entry is no yardstick):
+# - float32: y1/y2 and the gradients' sums in another order (~1e-7),
+#   plus the odd mask flip (up to 5e-3 of the largest entry seen at
+#   128 -> 128 @64^2): 1e-3.
+# - bfloat16: the forwards round y1/y2 at other points (up to 2^-5 of
+#   scale), masks flip where a y sits below that, and the plain
+#   version's autograd rounds every intermediate gradient to bf16 where
+#   the port's backward keeps float32. Emulated on a CPU at six flagship
+#   shapes: 2-6%; 2^-3.
+GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -3}
+SOURCES = {"contract_stage": "nlt_tpu_torch/csrc/fused_stage.cu",
+           "expand_stage": "nlt_tpu_torch/csrc/fused_stage.cu",
+           "scatter_add_rows": "nlt_tpu_torch/csrc/scatter.cu"}
 REPLACES = {"contract_stage": "nlt_tpu/ops/fused_stage.py:115",
-            "expand_stage": "nlt_tpu/ops/fused_stage.py:362"}
+            "expand_stage": "nlt_tpu/ops/fused_stage.py:362",
+            "scatter_add_rows": "nlt_tpu/ops/scatter_pallas.py:64"}
+TRAIN_BS = 4
+TRAIN_STEPS = 5            # timed steps after one warm-up step
+TRAIN_LAUNCHES = {"contract_stage": 12, "expand_stage": 6,
+                  "scatter_add_rows": 1}
 
 
 def emit(**kw):
@@ -396,6 +435,394 @@ def compare_predict(a, b, reqs, f32_tol, lsb_tol, label):
     return bool(ok)
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def train_cfg(compute_dtype="bfloat16"):
+    """nlt_tpu/config/dragon_specular.ini's model, loss and optimizer keys
+    (the flagship training recipe)."""
+    return Config({
+        "dataset": "nlt", "model": "nlt", "loss": "barron,1e+0lpips",
+        "lpips_weights": "none", "lpips_cache_gt": True,
+        "lr": "1e-3", "mgm": "-1", "bs": TRAIN_BS,
+        "imh": RES, "imw": RES, "uvh": RES, "uvw": RES,
+        "use_obs": True, "skip_connect_base": True, "linear_space": False,
+        "depth0": 16, "depth": DEPTH, "kernel": 2, "stride": 2,
+        "norm": "None", "act": "leakyrelu", "pool": "None",
+        "compute_dtype": compute_dtype})
+
+
+def check_scatter(idx, upd, n_rows, label, exact=False, timing=False):
+    """K1 against scatter_add_rows_ref on the same inputs; with timing,
+    also kernel, plain and index_add_ times and the bound."""
+    idx32 = idx.to(torch.int32).contiguous()
+    with torch.no_grad():
+        got = sc._launch(idx32, upd, n_rows)
+        want = sc.scatter_add_rows_ref(idx, upd, n_rows)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        scale = max([1.0] + ([float(want.abs().max())] if want.numel()
+                             else []))
+        ok = bool(torch.isfinite(got).all()) and (
+            bool(torch.equal(got, want)) if exact
+            else err <= SCATTER_TOL * scale)
+    r, w = upd.shape
+    live = int(((idx >= 0) & (idx < n_rows)).sum())
+    rec = {"check": "kernel_vs_plain", "kernel": "scatter_add_rows",
+           "label": label, "rows": r, "w": w, "n_rows": n_rows,
+           "live_rows": live, "exact_required": exact, "max_abs_err": err,
+           "tol": 0.0 if exact else SCATTER_TOL * scale, "ok": ok}
+    if timing:
+        rows = torch.where((idx >= 0) & (idx < n_rows), idx.long(), n_rows)
+        rec["ms"] = time_ms(lambda: sc._launch(idx32, upd, n_rows))
+        rec["plain_ms"] = time_ms(
+            lambda: sc.scatter_add_rows_ref(idx, upd, n_rows))
+        rec["library_ms"] = time_ms(lambda: torch.zeros(
+            (n_rows + 1, w), device=upd.device).index_add_(0, rows, upd))
+        # Each input read once (the index of every update, the values of
+        # the live ones), the table written once.
+        nbytes = 4 * r + 4 * w * live + 4 * w * n_rows
+        rec["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        rec["bound_by"] = "bytes"
+    emit(**rec)
+    return rec
+
+
+def scatter_phase():
+    """K1 at the flagship training shape (4 x 512^2 rows of 12 floats)
+    and at forced edge cases."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    recs = []
+    n_rows = TRAIN_BS * RES * RES
+    idx = torch.randint(0, n_rows, (n_rows,), generator=g, device="cuda")
+    idx[torch.rand(n_rows, generator=g, device="cuda") < 0.5] = -1
+    upd = torch.rand((n_rows, 12), generator=g, device="cuda")
+    recs.append(check_scatter(idx, upd, n_rows, "flagship_dup_dead"))
+    perm = torch.randperm(n_rows, generator=g, device="cuda")
+    recs.append(check_scatter(perm, upd, n_rows, "flagship_disjoint",
+                              exact=True))
+    for r, w, nr, dead in [(1000, 1, 300, 0.2), (257, 3, 64, 0.0),
+                           (12345, 12, 777, 0.5), (4096, 12, 100, 1.0),
+                           (1, 5, 1, 0.0)]:
+        i = torch.randint(0, nr, (r,), generator=g, device="cuda")
+        i[torch.rand(r, generator=g, device="cuda") < dead] = -1
+        u = torch.randn((r, w), generator=g, device="cuda")
+        recs.append(check_scatter(i, u, nr, "edge_r%d_w%d" % (r, w)))
+    return all(r["ok"] for r in recs)
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def check_stage_grad(kind, shape, o, dtype, seed):
+    """Gradients of every input through the kernel forward (ContractStage
+    / ExpandStage) against autograd of the plain forward."""
+    args = random_stage(*shape, o, dtype, seed)
+    ref = fs.contract_stage_ref if kind == "contract_stage" \
+        else fs.expand_stage_ref
+    tk = [a.clone().requires_grad_() for a in args]
+    yk = getattr(fs, kind)(*tk)
+    g = torch.randn(yk.shape, generator=torch.Generator().manual_seed(seed))
+    g = g.to("cuda", dtype)
+    yk.backward(g)
+    tp = [a.clone().requires_grad_() for a in args]
+    ref(*tp)[0].backward(g)
+    torch.cuda.synchronize()
+    errs = [_rel_l2(a.grad, b.grad) for a, b in zip(tk, tp)]
+    ok = all(bool(torch.isfinite(a.grad).all()) and a.grad.dtype == dtype
+             for a in tk) and max(errs) <= GRAD_TOL[dtype]
+    emit(check="stage_grad_kernel_vs_plain", kernel=kind, x=list(shape),
+         o=o, dtype=str(dtype)[6:], metric="rel_l2",
+         errs_dx_dw1_db1_dw2_db2=errs, tol=GRAD_TOL[dtype], ok=ok)
+    return ok
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """The three ops' entries swapped for their plain versions (autograd
+    of the plain stages; index_add_ for the scatter)."""
+    orig = (fs.contract_stage, fs.expand_stage, sc.scatter_add_rows)
+
+    def plain(ref):
+        def op(x, w1, b1, w2, b2, slope=0.3, return_y1=False):
+            y2, y1 = ref(x, w1, b1, w2, b2, slope)
+            return (y2, y1) if return_y1 else y2
+        return op
+
+    fs.contract_stage = plain(fs.contract_stage_ref)
+    fs.expand_stage = plain(fs.expand_stage_ref)
+    sc.scatter_add_rows = sc.scatter_add_rows_ref
+    try:
+        yield
+    finally:
+        fs.contract_stage, fs.expand_stage, sc.scatter_add_rows = orig
+
+
+def _train_batch(seed):
+    return {k: torch.from_numpy(v).to("cuda")
+            for k, v in make_batch(TRAIN_BS, RES, seed).items()}
+
+
+def _launches():
+    return dict(fs.LAUNCHES, **sc.LAUNCHES)
+
+
+def _grads(mu):
+    """The gradient of a first step from a fresh state, from the first
+    moment (tree) it left in AMSGrad: mu = (1 - b1) g."""
+    return [m / (1 - train_mod.B1) for m in tree_leaves(mu)]
+
+
+def _train_category(name):
+    for cat, keys in (("stage backward", ("ContractStageBackward",
+                                          "ExpandStageBackward")),
+                      ("LPIPS convolutions", ("convolution",)),
+                      ("optimizer", ("nlt::optimizer",)),
+                      ("Barron/wavelet forward", ("nlt::barron",)),
+                      ("LPIPS forward, rest", ("nlt::lpips",))):
+        if any(k in name for k in keys):
+            return cat
+    return None
+
+
+def profile_train_step(step, state, batch, statics):
+    """Device time of one step by category (torch.profiler). The three
+    kernels are found by name; every other kernel goes to the first
+    profiler range above the op that launched it that names a category
+    (the autograd node of a stage backward, a convolution op, the
+    optimizer's and the losses' ranges), else to 'other'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, statics)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    named = {"contract_kernel": "fused forward (K2)",
+             "expand_kernel": "fused forward (K3)",
+             "scatter_add_rows_kernel": "resample backward scatter (K1)"}
+    cats, total, rest, by_name = {}, 0.0, {}, {}
+    for ev in prof.key_averages():
+        # Device events only; the losses' and optimizer's ranges show up
+        # there too, as GPU spans over their kernels: not added.
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA") \
+                or ev.key.startswith("nlt::"):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        total += dev_us / 1e3
+        by_name[ev.key[:70]] = by_name.get(ev.key[:70], 0.0) + dev_us / 1e3
+        for key, cat in named.items():
+            if key in ev.key:
+                cats[cat] = cats.get(cat, 0.0) + dev_us / 1e3
+    for ev in prof.events():
+        for k in getattr(ev, "kernels", []):
+            if any(key in k.name for key in named):
+                continue
+            node, cat = ev, None
+            while node is not None and cat is None:
+                cat = _train_category(node.name)
+                node = node.cpu_parent
+            if cat is not None:
+                cats[cat] = cats.get(cat, 0.0) + k.duration / 1e3
+            else:
+                key = "%s <- %s" % (k.name[:60], ev.name)
+                rest[key] = rest.get(key, 0.0) + k.duration / 1e3
+    if total == 0:
+        emit(phase="train_profile", wall_ms_per_step=wall_ms,
+             device_ms_per_step="not measured",
+             note="torch.profiler recorded no device time")
+        return
+    cats["other (loss backward, resample, elementwise, copies)"] = max(
+        0.0, total - sum(cats.values()))
+    emit(phase="train_profile", bs=TRAIN_BS, wall_ms_per_step=wall_ms,
+         device_ms_per_step=total, host_idle_share=1 - total / wall_ms,
+         by_category_ms=dict(sorted(cats.items(), key=lambda kv: -kv[1])),
+         top_other_kernels_ms=dict(sorted(
+             rest.items(), key=lambda kv: -kv[1])[:15]),
+         top_device_events_ms=dict(sorted(
+             by_name.items(), key=lambda kv: -kv[1])[:15]))
+
+
+def compare_steps(label, state, batches, statics, model, tx, f32):
+    """The same steps through the kernels and through the plain versions
+    of the three ops; returns (ok, kernel grads, plain grads)."""
+    step = train_mod.make_train_step(model, tx, cached_statics=True,
+                                     with_vis=False)
+    runs = {}
+    for path in ("kernels", "plain"):
+        ctx = plain_ops() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            s, losses, first = state, [], None
+            for b, st in zip(batches, statics):
+                s, loss = step(s, b, st)
+                losses.append(float(loss))
+                first = first or s
+            torch.cuda.synchronize()
+        runs[path] = (losses, first)
+    (lk, sk), (lp, sp) = runs["kernels"], runs["plain"]
+    gk, gp = _grads(sk["opt_state"]["mu"]), _grads(sp["opt_state"]["mu"])
+    grad_rel = _rel_l2(torch.cat([a.flatten() for a in gk]),
+                       torch.cat([b.flatten() for b in gp]))
+    leaf_rel = max(_rel_l2(a, b) for a, b in zip(gk, gp) if b.any())
+    # Params after one AMSGrad step, lr * g / (|g| + eps) per entry: a
+    # gradient entry that changes sign (a tiny one, or one moved by a
+    # mask flip) moves its param by up to 2 lr, and one near eps moves
+    # with its rounding; every other entry agrees to float32 rounding.
+    # Count the entries with |g| >= 1e-6 that moved by more than 1e-6.
+    moved = total = 0
+    worst_param = 0.0
+    for pa, pb, g in zip(tree_leaves(sk["params"]["net"]),
+                         tree_leaves(sp["params"]["net"]),
+                         _grads(sp["opt_state"]["mu"]["net"])):
+        d = (pa - pb).abs()
+        # |g| >= 100 eps: the step is within 1% of lr * sign(g) there
+        # and rounding cannot move it; smaller entries may.
+        firm = g.abs() >= 1e-6
+        moved += int((d[firm] > 1e-6).sum())
+        total += int(firm.sum())
+        worst_param = max(worst_param, float(d.max()))
+    ok = all(np.isfinite(lk))
+    if f32:
+        # Loss to 1e-4 (1e-3 after the updates); gradients to 1e-4
+        # relative L2 over all leaves and 1e-2 per leaf (a bias gradient
+        # sums entries, among them any moved by a mask flip); params
+        # within a sign flip (2 lr), and at most 1e-3 of the counted
+        # ones moved.
+        ok &= abs(lk[0] - lp[0]) <= 1e-4 * abs(lp[0])
+        ok &= all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(lk, lp))
+        ok &= grad_rel <= 1e-4 and leaf_rel <= 1e-2
+        ok &= worst_param <= 2e-3 + 1e-6 and moved <= 1e-3 * total
+    else:
+        # bf16: the two paths round the U-Net at other points (the stage
+        # checks' 2^-3 per gradient), which averages out over a step's
+        # gradients: loss to 1e-2, gradients to 1e-2 relative L2 over
+        # all leaves; params within a sign flip (2 lr).
+        ok &= all(abs(a - b) <= 1e-2 * abs(b) for a, b in zip(lk, lp))
+        ok &= grad_rel <= 1e-2 and worst_param <= 2e-3 + 1e-6
+    emit(check="train_step_kernels_vs_plain", label=label,
+         loss_kernels=lk, loss_plain=lp, grad_rel_l2=grad_rel,
+         worst_leaf_grad_rel_l2=leaf_rel, firm_params_moved=moved,
+         firm_params=total, worst_param_abs=worst_param, ok=bool(ok))
+    return bool(ok), gk, gp
+
+
+def time_paths(model, tx, state, batches, statics, rounds=3):
+    """Step time through the kernels and through the plain versions of
+    the three ops, in turns (kernels, plain, kernels, plain, ...)."""
+    step = train_mod.make_train_step(model, tx, cached_statics=True,
+                                     with_vis=False)
+    times = {"kernels": [], "plain": []}
+    for i in range(rounds):
+        for path in ("kernels", "plain"):
+            ctx = plain_ops() if path == "plain" else contextlib.nullcontext()
+            b, st = batches[i % len(batches)], statics[i % len(statics)]
+            with ctx:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(state, b, st)
+                torch.cuda.synchronize()
+            times[path].append((time.perf_counter() - t) * 1e3)
+    emit(phase="train_paths_timing", bs=TRAIN_BS, step_ms=times,
+         median_ms={k: float(np.median(v)) for k, v in times.items()})
+
+
+def train_phase():
+    """Returns (ok, {kernel: main-path records}, launches)."""
+    ok = True
+    t0 = time.perf_counter()
+    ok &= scatter_phase()
+    for i, (kind, c, o, h) in enumerate(FLAGSHIP_STAGES):
+        for dtype in (torch.float32, torch.bfloat16):
+            ok &= check_stage_grad(kind, (TRAIN_BS, h, h, c), o, dtype,
+                                   200 + i)
+    emit(phase="train_kernel_checks", ok=bool(ok),
+         seconds=time.perf_counter() - t0)
+
+    # The main path: the flagship recipe's steps, counters reset.
+    t0 = time.perf_counter()
+    os.environ["NLT_TPU_FUSED_STAGE"] = "1"
+    model = Model(train_cfg("bfloat16"), device="cuda")
+    tx = train_mod.make_optimizer(model.config.get_float("lr"),
+                                  model.config.get_float("mgm"))
+    state0 = train_mod.init_state(model, tx, torch.Generator().manual_seed(0))
+    extract = train_mod.make_static_extractor(model)
+    batches = [_train_batch(30 + i) for i in range(TRAIN_STEPS + 1)]
+    statics = [extract(state0["params"], b) for b in batches]
+    step = train_mod.make_train_step(model, tx, cached_statics=True,
+                                     with_vis=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs.reset_launches()
+    sc.reset_launches()
+    state, times, per_step, losses = state0, [], [], []
+    for b, st in zip(batches, statics):
+        before = _launches()
+        t = time.perf_counter()
+        state, loss = step(state, b, st)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        per_step.append({k: v - before[k] for k, v in _launches().items()})
+    launches = _launches()
+    step_ok = (all(p == TRAIN_LAUNCHES for p in per_step)
+               and all(np.isfinite(losses)) and int(state["step"]) ==
+               len(batches))
+    emit(phase="train", bs=TRAIN_BS, steps=len(batches), launches=launches,
+         per_step=per_step[0], all_steps_12_6_1=step_ok, losses=losses,
+         warmup_ms=times[0], step_ms=times[1:],
+         median_ms_per_step=float(np.median(times[1:])),
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         seconds=time.perf_counter() - t0, ok=bool(step_ok))
+    ok &= step_ok
+
+    profile_train_step(step, state, batches[0], statics[0])
+    time_paths(model, tx, state, batches, statics)
+
+    # K1's inputs on the main path (one step, not counted): its record in
+    # the kernels line.
+    seen = []
+    orig = sc.scatter_add_rows
+
+    def recorder(idx, upd, n_rows):
+        seen.append((idx.clone(), upd.clone(), n_rows))
+        return orig(idx, upd, n_rows)
+
+    sc.scatter_add_rows = recorder
+    try:
+        step(state, batches[0], statics[0])
+    finally:
+        sc.scatter_add_rows = orig
+    main_recs = [check_scatter(*a, label="main_path", timing=True)
+                 for a in seen]
+    ok &= bool(main_recs) and all(r["ok"] for r in main_recs)
+
+    # The same steps through the plain versions of the three ops.
+    ok_b, gkb, gpb = compare_steps("bfloat16", state0, batches[:2],
+                                   statics[:2], model, tx, f32=False)
+    model32 = Model(train_cfg("float32"), device="cuda")
+    ok_f, _, gpf = compare_steps("float32", state0, batches[:3],
+                                 statics[:3], model32, tx, f32=True)
+    # bf16 against float32 (same params, batch, statics): the kernels
+    # path may be no further from the float32 gradient than the plain
+    # path is (x1.5 + 0.01 for noise).
+    flat = [torch.cat([a.flatten() for a in g]) for g in (gkb, gpb, gpf)]
+    e_k, e_p = _rel_l2(flat[0], flat[2]), _rel_l2(flat[1], flat[2])
+    ok_e = e_k <= 1.5 * e_p + 0.01
+    emit(check="train_bf16_vs_f32_grads", kernels_rel_l2=e_k,
+         plain_rel_l2=e_p, ok=bool(ok_e))
+    ok &= ok_b and ok_f and ok_e
+    return bool(ok), {"scatter_add_rows": main_recs}, launches
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -509,15 +936,25 @@ def main():
                  bs=int(req["base"].shape[0]), pack="uint8",
                  latency_ms=stats["latency_s"] * 1e3, fps=stats["fps"])
 
+    # 6. Training: the flagship recipe's steps.
+    t0 = time.perf_counter()
+    train_ok, train_recs, train_launches = train_phase()
+    emit(phase="training", ok=train_ok, seconds=time.perf_counter() - t0)
+    ok &= train_ok
+    per_kernel.update(train_recs)
+
     kernels = []
-    for kind in ("contract_stage", "expand_stage"):
+    for kind in ("contract_stage", "expand_stage", "scatter_add_rows"):
         recs = per_kernel.get(kind, [])
         bound = sum(r["bound_ms"] for r in recs)
         by_bytes = sum(r["bound_ms"] for r in recs
                        if r["bound_by"] == "bytes")
+        by_path = {"serve": launches.get(kind, 0),
+                   "train": train_launches[kind]}
         kernels.append({
-            "name": kind, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[kind], "launches": launches[kind],
+            "name": kind, "route": "cuda", "source": SOURCES[kind],
+            "replaces": REPLACES[kind], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max((r["max_abs_err"] for r in recs), default=None),
             "ms": sum(r["ms"] for r in recs),
             "plain_ms": sum(r["plain_ms"] for r in recs),
@@ -525,10 +962,13 @@ def main():
             "bound_by": "bytes" if by_bytes >= bound - by_bytes
             else "operations",
             "library_ms": sum(r["library_ms"] for r in recs)})
-        ok &= bool(recs) and launches[kind] > 0
+        ok &= bool(recs) and train_launches[kind] > 0
     emit(phase="summary", ok=bool(ok),
-         note="kernel ms/plain_ms/bound_ms/library_ms: sums over the "
-              "stages of one bs-1 request of the main path")
+         note="kernel ms/plain_ms/bound_ms/library_ms: contract/expand "
+              "summed over the stages of one bs-1 request of the serving "
+              "path; scatter_add_rows: the one launch of a bs-4 training "
+              "step. launches: the serving requests and the training "
+              "steps, each counted from 0")
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1

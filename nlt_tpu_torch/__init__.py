@@ -11,8 +11,11 @@ The package imports torch and never jax or nlt_tpu. Entry points
 unless the caller names another device; without CUDA they raise.
 
 Ported so far: the serving path (``serve.Server`` over
-``models.nlt.Model``) with the fused U-Net stage kernels of
-``ops/fused_stage.py`` written in CUDA C++ (``csrc/fused_stage.cu``).
+``models.nlt.Model``) and the training step of the flagship recipe
+(``parallel/train.py``: barron + LPIPS, AMSGrad, cached statics), with
+the fused U-Net stage kernels of ``ops/fused_stage.py`` and the
+resampler-backward scatter of ``ops/scatter.py`` written in CUDA C++
+(``csrc/fused_stage.cu``, ``csrc/scatter.cu``).
 """
 
 import torch

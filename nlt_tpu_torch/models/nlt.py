@@ -1,4 +1,4 @@
-"""The NLT model, inference subset (port of nlt_tpu/models/nlt.py).
+"""The NLT model (port of nlt_tpu/models/nlt.py).
 
 Dataflow kept exactly:
 
@@ -11,7 +11,11 @@ Dataflow kept exactly:
   concat; ``obs_override`` substitutes the aggregate at inference;
 - a residual over the diffuse base when skip_connect_base;
 - warp scaled to pixels, texel (0, 0) blacked out, resample to camera
-  space, resize to (imh, imw).
+  space, resize to (imh, imw);
+- train/vali return gt_camspc = alpha_blend(rgb_camspc, fg_camspc); with
+  cached ``statics`` (``static_products``) the fg and base resamples are
+  skipped and the prediction is warped through the precomputed plan
+  (``resample_planned``, whose backward drops background updates).
 
 XLA drops work whose result is unused; eager PyTorch does not, so two
 cases are explicit here: with ``obs_override`` (or without use_obs) the
@@ -21,22 +25,24 @@ named outputs (a test-mode server never runs the fg/base resamples).
 Concatenation promotes dtypes as jnp.concatenate does: a float32 obs
 pyramid joined to a bfloat16 query feature map continues in float32.
 
-Losses, the cached-statics path and the visualization belong to the
-training port and the test-time entry point.
+The losses live in ``models/base.py``; the visualization belongs to
+the test-time entry point and is not ported yet.
 """
 
 import torch
 
+from .. import losses as losses_mod
 from .. import resolve_device
 from ..networks import convnet
 from ..ops import resample as resample_mod
 from ..utils import img as imgutil
+from ..utils.tree import tree_map
+from .base import Model as BaseModel
 
 # Channel counts of the fixed inputs: query = base(3) + cvis(1) + lvis(1);
 # obs = nn_rgb - nn_base (3).
 QUERY_IN_CH = 5
 OBS_IN_CH = 3
-ALLOWED_MODES = ("train", "vali", "test")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -63,19 +69,15 @@ def _cat(a, b):
 
 def tree_to(tree, device):
     """Move every tensor of a nested dict/list to `device`."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to(v, device) for v in tree)
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
-class Model:
+class Model(BaseModel):
     def __init__(self, config, device="cuda"):
-        self.config = config
         self.device = resolve_device(device)
         self.imh = config.get_int("imh")
         self.imw = config.get_int("imw")
+        super().__init__(config)
         depth0 = config.get_int("depth0")
         depth = config.get_int("depth")
         kernel = config.get_int("kernel")
@@ -111,10 +113,11 @@ class Model:
                              % config.get("resample_impl"))
         self.compute_dtype = _DTYPES[config.get("compute_dtype", "float32")]
 
-    @staticmethod
-    def _validate_mode(mode):
-        if mode not in ALLOWED_MODES:
-            raise ValueError(mode)
+    def _init_loss(self):
+        """Barron needs the image size."""
+        return losses_mod.build_losses(
+            self.config.get("loss"), config=self.config, imh=self.imh,
+            imw=self.imw)
 
     # ---- parameters ----
 
@@ -123,7 +126,9 @@ class Model:
         placed on the model's device. Channel bookkeeping mirrors
         apply()'s interleaved dataflow: contracting query stages consume
         [query_out + obs_out] channels when use_obs, expanding stages
-        [prev_out + skip]. Tree: {'net': {'query': [...], 'obs': [...]}}.
+        [prev_out + skip]. Tree: {'net': {'query': [...], 'obs': [...]},
+        'loss': {...}}; the loss state (LPIPS's random-feature AlexNet)
+        is nlt_tpu's own.
         """
         query = self.net["query"]
         obs = self.net["obs"]
@@ -145,8 +150,8 @@ class Model:
                 if skip_chs:
                     q_ch = q_ch + skip_chs.pop()
                 query_params[i], q_ch = stage.init(generator, q_ch)
-        return tree_to({"net": {"query": query_params, "obs": obs_params}},
-                       self.device)
+        return tree_to({"net": {"query": query_params, "obs": obs_params},
+                        "loss": self.init_loss_params()}, self.device)
 
     # ---- forward ----
 
@@ -158,14 +163,19 @@ class Model:
         to_vis) in train/vali and (pred_camspc, None, None, to_vis) in
         test mode, as nlt_tpu does.
 
+        statics: train/vali only; the cached ``static_products(batch)``
+        (gt_camspc, base_camspc, pred_plan): the fg and base resamples
+        are skipped and the prediction is warped through the plan, with
+        the same outputs.
+
         outputs: test mode only; the to_vis keys to compute (subset of
         pred, pred_camspc, base_camspc, nn_camspc). None computes all.
         """
         self._validate_mode(mode)
-        if statics is not None:
-            raise NotImplementedError(
-                "cached statics belong to the training port")
         training = mode in ("train", "vali")
+        if statics is not None and not training:
+            raise ValueError("statics caching is a train/vali-path "
+                             "optimization")
         if outputs is None or training:
             outputs = ("pred", "pred_camspc", "base_camspc", "nn_camspc")
         outputs = set(outputs)
@@ -193,10 +203,18 @@ class Model:
             warp = self._scale_warp(batch["warp"])
         if "pred_camspc" in outputs:
             pred_c = imgutil.set_left_top_corner(pred, 0.0)
-            to_vis["pred_camspc"] = imgutil.resize(
-                resample_mod.resample(pred_c, warp), self.imh, self.imw)
+            plan = statics.get("pred_plan") if statics is not None else None
+            if plan is not None:
+                warped = resample_mod.resample_planned(pred_c, plan)
+            else:
+                warped = resample_mod.resample(pred_c, warp)
+            to_vis["pred_camspc"] = imgutil.resize(warped, self.imh,
+                                                   self.imw)
         gt_camspc = None
-        if training or "base_camspc" in outputs:
+        if statics is not None:
+            gt_camspc = statics["gt_camspc"]
+            to_vis["base_camspc"] = statics["base_camspc"]
+        elif training or "base_camspc" in outputs:
             gt_camspc, to_vis["base_camspc"] = self._warp_bases(
                 batch, warp, need_gt=training)
         if "nn_camspc" in outputs:
@@ -209,6 +227,29 @@ class Model:
             to_vis["gt_camspc"] = gt_camspc
             return pred_camspc, gt_camspc, {}, to_vis
         return pred_camspc, None, None, to_vis
+
+    def static_products(self, batch):
+        """Everything apply() computes from static per-example data and
+        never from params: the training target gt_camspc, the warped
+        base base_camspc and the plan of the prediction's resample
+        (make_plan with zero_grad_texel=(0, 0): texel (0, 0) is blacked
+        out before the resample and its gradient zeroed, so updates that
+        only write there, all background queries, are dropped)."""
+        if self.config.get_float("take_compact_frac", 0.0) > 0:
+            raise NotImplementedError(
+                "compact resample plans (take_compact_frac) are not ported "
+                "(ROADMAP.md, queue 1)")
+        batch = normalize_batch(batch)
+        warp = self._scale_warp(batch["warp"])
+        h, w = batch["base"].shape[1:3]
+        gt_camspc, base_camspc = self._warp_bases(batch, warp)
+        return {"gt_camspc": gt_camspc, "base_camspc": base_camspc,
+                "pred_plan": resample_mod.make_plan(
+                    warp, h, w, zero_grad_texel=(0, 0))}
+
+    def gt_camspc(self, batch):
+        """The training target, computed without the network."""
+        return self.static_products(batch)["gt_camspc"]
 
     def _obs_inputs(self, batch):
         """The obs path's inputs (a list, or one (N, K, ...) tensor when

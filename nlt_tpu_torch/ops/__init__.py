@@ -1,1 +1,2 @@
-"""Ops: the fused U-Net stage kernels and their build, the resampler."""
+"""Ops: the fused U-Net stage kernels, the resampler and its backward
+scatter (with their build), and the robust loss's math."""

@@ -26,6 +26,14 @@ On a CPU tensor each op runs its plain PyTorch version
 JAX references); on a CUDA tensor it launches its kernel or raises.
 ``LAUNCHES`` counts kernel launches per op.
 
+Gradients: when an input requires grad, the op runs as the
+``ContractStage`` / ``ExpandStage`` autograd Function, whose forward is
+the same kernel (or plain version) emitting y1 as well, and whose
+backward is a straight port of nlt_tpu's ``_contract_bwd_xla`` /
+``_expand_bwd_xla`` (matmuls in float32, each gradient cast to its
+primal's dtype), shared by both devices. nlt_tpu's backward is XLA, not
+Pallas, so there is no backward kernel to port.
+
 Numerics follow the Pallas kernels: float32 accumulation, the bias
 added in float32, y1 and y2 rounded to the activation dtype once each
 after the activation. The plain versions follow nlt_tpu's references,
@@ -225,11 +233,6 @@ def _check(kind, x, w1, b1, w2, b2):
             raise TypeError("%s: all tensors must be %s" % (kind, x.dtype))
         if not t.is_contiguous():
             raise ValueError("%s: tensors must be contiguous" % kind)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w1, b1, w2, b2)):
-        raise NotImplementedError(
-            "%s: the CUDA kernel has no backward yet; run under "
-            "torch.no_grad()" % kind)
     if max(n * h * w * c, 4 * n * h * w * o) >= 2 ** 31:
         raise ValueError("%s: tensor too large for 32-bit offsets" % kind)
 
@@ -263,6 +266,132 @@ def _launch(kind, x, w1, b1, w2, b2, slope, return_y1, plan=None):
     return (y2, y1) if return_y1 else y2
 
 
+# ---------------------------------------------------------------------------
+# Backward (nlt_tpu/ops/fused_stage.py _contract_bwd_xla / _expand_bwd_xla):
+# plain PyTorch on both devices, from the y1 and y2 the forward emitted.
+# Float32 throughout; each gradient returns in its primal's dtype.
+# ---------------------------------------------------------------------------
+
+
+def _lrelu_mask(y, slope):
+    """y > 0 ? 1 : slope, in y's dtype (leaky_relu's gradient except on
+    the measure-zero set z == 0)."""
+    one = torch.ones((), dtype=y.dtype, device=y.device)
+    return torch.where(y > 0, one, torch.full_like(one, slope))
+
+
+def _flat_t_matmul(a, b):
+    """einsum('...i,...j->ij') in float32: sum over every leading dim."""
+    return torch.matmul(a.reshape(-1, a.shape[-1]).float().t(),
+                        b.reshape(-1, b.shape[-1]).float())
+
+
+def _stage_bwd_common(shift_fwd, shift_bwd, y1, y2, w2, b2, g, slope):
+    """The k2s1 half of either stage: (dz1, dw2, db2). shift_fwd is the
+    forward's tap shift of y1, shift_bwd its adjoint on dz2."""
+    dz2 = (g * _lrelu_mask(y2, slope)).float()
+    db2 = dz2.sum(dim=(0, 1, 2)).to(b2.dtype)
+    dw2 = torch.stack([
+        torch.stack([_flat_t_matmul(shift_fwd(y1, ei, ej), dz2)
+                     for ej in range(2)])
+        for ei in range(2)]).to(w2.dtype)
+    dy1 = 0.0
+    for ei in range(2):
+        for ej in range(2):
+            dy1 = dy1 + torch.matmul(shift_bwd(dz2, ei, ej),
+                                     w2[ei, ej].float().t())
+    dz1 = (dy1 * _lrelu_mask(y1, slope)).float()
+    return dz1, dw2, db2
+
+
+def contract_stage_bwd(x, w1, b1, w2, b2, y1, y2, g, slope):
+    """Gradients (dx, dw1, db1, dw2, db2) of contract_stage's y2."""
+    n, h, w, c = x.shape
+    o = w1.shape[3]
+    dz1, dw2, db2 = _stage_bwd_common(_shift_pp, _shift_mm, y1, y2, w2, b2,
+                                      g, slope)
+    db1 = dz1.sum(dim=(0, 1, 2)).to(b1.dtype)
+    x5 = x.reshape(n, h // 2, 2, w // 2, 2 * c)
+    w1r = w1.reshape(2, 2 * c, o).float()
+    dw1 = torch.stack([_flat_t_matmul(x5[:, :, r], dz1) for r in range(2)])
+    dw1 = dw1.reshape(w1.shape).to(w1.dtype)
+    dx5 = torch.stack([torch.matmul(dz1, w1r[r].t()) for r in range(2)],
+                      dim=2)
+    return dx5.reshape(x.shape).to(x.dtype), dw1, db1, dw2, db2
+
+
+def expand_stage_bwd(x, w1, b1, w2, b2, y1, y2, g, slope):
+    """Gradients (dx, dw1, db1, dw2, db2) of expand_stage's y2."""
+    n, h, w, c = x.shape
+    o = w1.shape[3]
+    dz1, dw2, db2 = _stage_bwd_common(_shift_mm, _shift_pp, y1, y2, w2, b2,
+                                      g, slope)
+    db1 = dz1.sum(dim=(0, 1, 2)).to(b1.dtype)
+    # z1[n, 2i+p, 2j+q, o] = sum_c x[n, i, j, c] w1[p, q, c, o]
+    dz1p = dz1.reshape(n, h, 2, w, 2, o).permute(0, 1, 3, 2, 4, 5).reshape(
+        n, h, w, 4 * o)
+    w1f = w1.permute(2, 0, 1, 3).reshape(c, 4 * o).float()
+    dw1 = _flat_t_matmul(x, dz1p).reshape(c, 2, 2, o).permute(1, 2, 0, 3)
+    dx = torch.matmul(dz1p, w1f.t())
+    return (dx.to(x.dtype), dw1.to(w1.dtype), db1, dw2, db2)
+
+
+_REFS = {"contract_stage": contract_stage_ref,
+         "expand_stage": expand_stage_ref}
+
+
+def _forward(kind, x, w1, b1, w2, b2, slope):
+    """(y2, y1): the kernel on CUDA, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return _REFS[kind](x, w1, b1, w2, b2, slope)
+    return _launch(kind, x, w1, b1, w2, b2, slope, True)
+
+
+class ContractStage(torch.autograd.Function):
+    """contract_stage's y2, differentiable in x and the four params; the
+    backward reuses the y1 the forward emitted."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, slope):
+        y2, y1 = _forward("contract_stage", x, w1, b1, w2, b2, slope)
+        ctx.save_for_backward(x, w1, b1, w2, b2, y1, y2)
+        ctx.slope = slope
+        return y2
+
+    @staticmethod
+    def backward(ctx, g):
+        return contract_stage_bwd(*ctx.saved_tensors, g, ctx.slope) + (None,)
+
+
+class ExpandStage(torch.autograd.Function):
+    """expand_stage's y2, differentiable in x and the four params."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, slope):
+        y2, y1 = _forward("expand_stage", x, w1, b1, w2, b2, slope)
+        ctx.save_for_backward(x, w1, b1, w2, b2, y1, y2)
+        ctx.slope = slope
+        return y2
+
+    @staticmethod
+    def backward(ctx, g):
+        return expand_stage_bwd(*ctx.saved_tensors, g, ctx.slope) + (None,)
+
+
+def _stage(fn, kind, x, w1, b1, w2, b2, slope, return_y1):
+    _check(kind, x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        if return_y1:
+            raise ValueError("%s: return_y1 is for inference; y1 carries no "
+                             "gradient" % kind)
+        return fn.apply(x, w1, b1, w2, b2, slope)
+    if x.device.type == "cpu":
+        y2, y1 = _REFS[kind](x, w1, b1, w2, b2, slope)
+        return (y2, y1) if return_y1 else y2
+    return _launch(kind, x, w1, b1, w2, b2, slope, return_y1)
+
+
 def contract_stage(x, w1, b1, w2, b2, slope=0.3, return_y1=False):
     """Fused contracting U-Net stage.
 
@@ -271,13 +400,11 @@ def contract_stage(x, w1, b1, w2, b2, slope=0.3, return_y1=False):
     b2: (O,); all of x's dtype. slope: LeakyReLU slope (0.0 = ReLU).
 
     Returns y2 = lrelu(conv_k2s1(y1) + b2), (N, H/2, W/2, O), where
-    y1 = lrelu(conv_k2s2(x) + b1); (y2, y1) if return_y1.
+    y1 = lrelu(conv_k2s2(x) + b1); (y2, y1) if return_y1 (inference
+    only). Differentiable (ContractStage) when an input requires grad.
     """
-    _check("contract_stage", x, w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        y2, y1 = contract_stage_ref(x, w1, b1, w2, b2, slope)
-        return (y2, y1) if return_y1 else y2
-    return _launch("contract_stage", x, w1, b1, w2, b2, slope, return_y1)
+    return _stage(ContractStage, "contract_stage", x, w1, b1, w2, b2, slope,
+                  return_y1)
 
 
 def expand_stage(x, w1, b1, w2, b2, slope=0.3, return_y1=False):
@@ -288,10 +415,8 @@ def expand_stage(x, w1, b1, w2, b2, slope=0.3, return_y1=False):
     kernel, b2: (O,); all of x's dtype.
 
     Returns y2 = lrelu(deconv_k2s1(y1) + b2), (N, 2H, 2W, O), where
-    y1 = lrelu(deconv_k2s2(x) + b1); (y2, y1) if return_y1.
+    y1 = lrelu(deconv_k2s2(x) + b1); (y2, y1) if return_y1 (inference
+    only). Differentiable (ExpandStage) when an input requires grad.
     """
-    _check("expand_stage", x, w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        y2, y1 = expand_stage_ref(x, w1, b1, w2, b2, slope)
-        return (y2, y1) if return_y1 else y2
-    return _launch("expand_stage", x, w1, b1, w2, b2, slope, return_y1)
+    return _stage(ExpandStage, "expand_stage", x, w1, b1, w2, b2, slope,
+                  return_y1)

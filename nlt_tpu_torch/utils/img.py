@@ -1,11 +1,38 @@
 """Device image ops on NHWC tensors: the subset of nlt_tpu/utils/img.py
-that the serving path runs."""
+that the serving and training paths run."""
 
+import functools
+
+import numpy as np
 import torch
 
 from . import logging as logutil
 
 logger = logutil.Logger(loggee="utils/img")
+
+_RGB2YUV = np.array([
+    [0.299, 0.587, 0.114],
+    [-0.14714119, -0.28886916, 0.43601035],
+    [0.61497538, -0.51496512, -0.10001026]], dtype=np.float32).T
+
+_YUV2RGB = np.linalg.inv(_RGB2YUV.astype(np.float64)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _yuv_matrix(inverse, dtype, device):
+    """The (inverse) YUV matrix on `device`, copied there once: a copy
+    from host memory in the step would wait for the device."""
+    return torch.as_tensor(_YUV2RGB if inverse else _RGB2YUV, dtype=dtype,
+                           device=device)
+
+
+def rgb_to_yuv(x):
+    """BT.601 RGB -> YUV over the last axis."""
+    return x @ _yuv_matrix(False, x.dtype, x.device)
+
+
+def yuv_to_rgb(x):
+    return x @ _yuv_matrix(True, x.dtype, x.device)
 
 
 def alpha_blend(t1, alpha, t2=None):

@@ -4,6 +4,7 @@ Pallas kernels in interpret mode, plain and lane-packed, and against
 the JAX references; plus the CUDA launch plan, which is plain Python.
 Inputs come from a numpy seed and go to both packages."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,8 +25,8 @@ def _args(rng, shape, o):
 
 def _close(got, want, tol):
     np.testing.assert_allclose(
-        np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
-                   np.float32),
+        np.asarray(got.detach().float() if isinstance(got, torch.Tensor)
+                   else got, np.float32),
         np.asarray(want, np.float32), atol=tol, rtol=tol)
 
 
@@ -125,3 +126,93 @@ def test_launch_plan_fits_every_flagship_stage(itemsize):
             assert 1 <= th < 2 * g and 1 <= tw < 2 * g
             assert bn1 in tfs._BNS and bn2 in tfs._BNS
 
+
+
+def _grads(op, args, g, **kw):
+    """(y2, d_args) of the port's op under autograd."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    y = op(*ts, **kw)
+    y.backward(torch.from_numpy(g).to(y.dtype))
+    return y, [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("kind,shape,o", [
+    ("contract", (2, 8, 12, 6), 5),
+    ("contract", (1, 16, 32, 4), 6),   # nlt_tpu packs its lanes (P=2)
+    ("expand", (2, 4, 6, 10), 6),
+    ("expand", (2, 8, 16, 6), 5),
+])
+@pytest.mark.parametrize("slope", [0.3, 0.0])
+def test_stage_grads_match_jax(rng, kind, shape, o, slope):
+    """Gradients of every input through ContractStage / ExpandStage
+    against jax.vjp of nlt_tpu's custom_vjp (its Pallas forward in
+    interpret mode, its XLA backward), float32."""
+    args = _args(rng, shape, o)
+    jop = jfs.contract_stage if kind == "contract" else jfs.expand_stage
+    y, vjp = jax.vjp(lambda *a: jop(*a, slope, True),
+                     *[jnp.asarray(a) for a in args])
+    g = rng.standard_normal(y.shape).astype(np.float32)
+    want = vjp(jnp.asarray(g))
+    op = tfs.contract_stage if kind == "contract" else tfs.expand_stage
+    got_y, got = _grads(op, args, g, slope=slope)
+    _close(got_y, y, TOL)
+    for a, b in zip(got, want):
+        scale = max(1.0, float(np.abs(np.asarray(b)).max()))
+        _close(a / scale, np.asarray(b) / scale, TOL)
+
+
+@pytest.mark.parametrize("kind", ["contract", "expand"])
+def test_stage_backward_bfloat16_matches_jax(rng, kind):
+    """bfloat16: the port's backward against nlt_tpu's on the same
+    residuals (x, params, and the y1, y2 of nlt_tpu's Pallas forward).
+    Both compute in float32 and round each gradient to bf16 once, so
+    they agree to 1 bf16 ulp (2^-8 relative) of each gradient's largest
+    entry; 2^-7 leaves a margin. (The forwards themselves round at other
+    points, see test_plain_version_matches_jax_reference, and a y that
+    changes sign flips its LeakyReLU mask, so end-to-end bf16 gradients
+    are compared through the whole step in test_torch_train.py.)"""
+    args = [jnp.asarray(a).astype(jnp.bfloat16)
+            for a in _args(rng, (2, 8, 12, 6), 5)]
+    jfwd, jbwd, tbwd = (
+        (jfs._contract_fwd_pallas, jfs._contract_bwd_xla,
+         tfs.contract_stage_bwd) if kind == "contract" else
+        (jfs._expand_fwd_pallas, jfs._expand_bwd_xla, tfs.expand_stage_bwd))
+    y2, y1 = jfwd(*args, slope=0.3, interpret=True)
+    g = jnp.asarray(rng.standard_normal(y2.shape)).astype(jnp.bfloat16)
+    want = jbwd(tuple(args) + (y1, y2, 0.3), g)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(
+            torch.bfloat16)
+
+    got = tbwd(*[t(a) for a in args], t(y1), t(y2), t(g), 0.3)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        b = np.asarray(b.astype(jnp.float32))
+        scale = max(1.0, float(np.abs(b).max()))
+        _close(a.float() / scale, b / scale, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("kind", ["contract", "expand"])
+def test_stage_backward_matches_autograd_of_plain_version(rng, kind):
+    """The hand-derived backward equals torch autograd through the plain
+    version (a check independent of nlt_tpu); float32, sums in another
+    order."""
+    args = _args(rng, (2, 6, 8, 4), 3)
+    op = tfs.contract_stage if kind == "contract" else tfs.expand_stage
+    ref = tfs.contract_stage_ref if kind == "contract" \
+        else tfs.expand_stage_ref
+    y = ref(*[torch.from_numpy(a) for a in args])[0]
+    g = rng.standard_normal(tuple(y.shape)).astype(np.float32)
+    _, got = _grads(op, args, g)
+    _, want = _grads(lambda *a: ref(*a)[0], args, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+
+
+def test_stage_under_grad_refuses_return_y1():
+    x = torch.zeros(1, 4, 4, 2, requires_grad=True)
+    with pytest.raises(ValueError):
+        tfs.contract_stage(x, torch.zeros(2, 2, 2, 3), torch.zeros(3),
+                           torch.zeros(2, 2, 3, 3), torch.zeros(3),
+                           return_y1=True)
