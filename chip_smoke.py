@@ -10,6 +10,10 @@ Phases, each of which must pass for the run to exit 0:
    query and obs paths), in bfloat16 and float32, and at small shapes
    with forced tilings (odd tile counts, ragged edges, one tile, odd
    channel counts). Time kernel, plain version and a cuDNN yardstick.
+   The same for the 2x2 stride-2 conv stage kernel (K4) at nlt_tpu's
+   three shapes at bs 4 (timed), at the shapes of nlt_tpu's kernel
+   tests, at an odd C = 5 / O = 3 and with negative_slope 0. No path of
+   the model runs K4 (as in nlt_tpu), so its main-path launches are 0.
 3. Serve: a Server over the flagship config (bf16 compute, uint8
    responses) with params from a seeded torch.Generator bakes an
    observation pyramid from two synthetic bs-4 batches, then answers 8
@@ -29,6 +33,20 @@ Phases, each of which must pass for the run to exit 0:
    must launch 12 contract + 6 expand + 1 scatter kernels), timed,
    profiled by category, and compared with the same steps through the
    plain versions of the three ops (float32 and bfloat16).
+7. Training from disk through the entry point nlt_tpu_torch.trainvali:
+   a 512^2 scene written by data_gen/synthesize.py (4 cameras x 4
+   lights, holdout C03 x L003), nlt_tpu/config/sphere512_specular.ini
+   (the flagship recipe's model, loss and optimizer keys: bf16, bs 4,
+   disk cache, uint8 wire, cached statics) for 3 epochs with the launch
+   counters reset (each train step 12 contract + 6 expand + 1 scatter,
+   each validation batch 12 + 6); its outputs on disk; the same run
+   through the plain versions of the three ops (float32 and bfloat16);
+   the main run repeated as it was and with placement on a worker
+   thread and its own CUDA stream (prefetch_batches = 1); a run stopped
+   after epoch 2 and resumed to 3 against the run that was not stopped;
+   restore_model(step='best') and a Server answering one request from
+   the checkpoint; epoch times, the loader's share and the device's idle
+   share of a warm epoch (a profiled run).
 
 Prints the card's name and power limit, one JSON line per check and
 timing, a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
@@ -36,7 +54,9 @@ Exits non-zero without printing a result when there is no CUDA device.
 """
 
 import contextlib
+import glob
 import json
+import shutil
 import os
 import subprocess
 import sys
@@ -45,12 +65,17 @@ import time
 import numpy as np
 import torch
 
+from nlt_tpu_torch import trainvali
+from nlt_tpu_torch.datasets import get_dataset_class
 from nlt_tpu_torch.models.nlt import Model
+from nlt_tpu_torch.nlt_test import restore_model
 from nlt_tpu_torch.ops import _build
+from nlt_tpu_torch.ops import conv_stage as cs
 from nlt_tpu_torch.ops import fused_stage as fs
 from nlt_tpu_torch.ops import scatter as sc
 from nlt_tpu_torch.parallel import train as train_mod
 from nlt_tpu_torch.serve import Server
+from nlt_tpu_torch.utils import config as config_mod
 from nlt_tpu_torch.utils.config import Config
 from nlt_tpu_torch.utils.tree import tree_leaves
 
@@ -84,16 +109,27 @@ SCATTER_TOL = 1e-5
 #   the port's backward keeps float32. Emulated on a CPU at six flagship
 #   shapes: 2-6%; 2^-3.
 GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -3}
+# K4 against its plain version, as a fraction of the plain output's
+# largest magnitude (at least 1): float32 sums of 4C <= 256 products in
+# another order (~1e-6); 1e-4 leaves a margin of 100.
+CONV_TOL = 1e-4
 SOURCES = {"contract_stage": "nlt_tpu_torch/csrc/fused_stage.cu",
            "expand_stage": "nlt_tpu_torch/csrc/fused_stage.cu",
-           "scatter_add_rows": "nlt_tpu_torch/csrc/scatter.cu"}
+           "scatter_add_rows": "nlt_tpu_torch/csrc/scatter.cu",
+           "conv2x2s2_lrelu": "nlt_tpu_torch/csrc/conv_stage.cu"}
 REPLACES = {"contract_stage": "nlt_tpu/ops/fused_stage.py:115",
             "expand_stage": "nlt_tpu/ops/fused_stage.py:362",
-            "scatter_add_rows": "nlt_tpu/ops/scatter_pallas.py:64"}
+            "scatter_add_rows": "nlt_tpu/ops/scatter_pallas.py:64",
+            "conv2x2s2_lrelu": "nlt_tpu/ops/conv_stage_pallas.py:38"}
+KERNELS = ("contract_stage", "expand_stage", "scatter_add_rows",
+           "conv2x2s2_lrelu")
 TRAIN_BS = 4
 TRAIN_STEPS = 5            # timed steps after one warm-up step
 TRAIN_LAUNCHES = {"contract_stage": 12, "expand_stage": 6,
-                  "scatter_add_rows": 1}
+                  "scatter_add_rows": 1, "conv2x2s2_lrelu": 0}
+# A validation batch of the trainvali path runs the forward only.
+EVAL_LAUNCHES = {"contract_stage": 12, "expand_stage": 6,
+                 "scatter_add_rows": 0, "conv2x2s2_lrelu": 0}
 
 
 def emit(**kw):
@@ -459,24 +495,27 @@ def check_scatter(idx, upd, n_rows, label, exact=False, timing=False):
     also kernel, plain and index_add_ times and the bound."""
     idx32 = idx.to(torch.int32).contiguous()
     with torch.no_grad():
-        got = sc._launch(idx32, upd, n_rows)
+        before = sc.LAUNCHES["scatter_add_rows"]
+        got = sc.scatter_add_rows(idx32, upd, n_rows)
+        launched = sc.LAUNCHES["scatter_add_rows"] - before
         want = sc.scatter_add_rows_ref(idx, upd, n_rows)
         torch.cuda.synchronize()
         err = float((got - want).abs().max()) if got.numel() else 0.0
         scale = max([1.0] + ([float(want.abs().max())] if want.numel()
                              else []))
-        ok = bool(torch.isfinite(got).all()) and (
+        ok = launched == 1 and bool(torch.isfinite(got).all()) and (
             bool(torch.equal(got, want)) if exact
             else err <= SCATTER_TOL * scale)
     r, w = upd.shape
     live = int(((idx >= 0) & (idx < n_rows)).sum())
     rec = {"check": "kernel_vs_plain", "kernel": "scatter_add_rows",
            "label": label, "rows": r, "w": w, "n_rows": n_rows,
-           "live_rows": live, "exact_required": exact, "max_abs_err": err,
+           "live_rows": live, "exact_required": exact, "launched": launched,
+           "max_abs_err": err,
            "tol": 0.0 if exact else SCATTER_TOL * scale, "ok": ok}
     if timing:
         rows = torch.where((idx >= 0) & (idx < n_rows), idx.long(), n_rows)
-        rec["ms"] = time_ms(lambda: sc._launch(idx32, upd, n_rows))
+        rec["ms"] = time_ms(lambda: sc.scatter_add_rows(idx32, upd, n_rows))
         rec["plain_ms"] = time_ms(
             lambda: sc.scatter_add_rows_ref(idx, upd, n_rows))
         rec["library_ms"] = time_ms(lambda: torch.zeros(
@@ -568,7 +607,13 @@ def _train_batch(seed):
 
 
 def _launches():
-    return dict(fs.LAUNCHES, **sc.LAUNCHES)
+    return dict(fs.LAUNCHES, **sc.LAUNCHES, **cs.LAUNCHES)
+
+
+def _reset_launches():
+    fs.reset_launches()
+    sc.reset_launches()
+    cs.reset_launches()
 
 
 def _grads(mu):
@@ -760,8 +805,7 @@ def train_phase():
                                      with_vis=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fs.reset_launches()
-    sc.reset_launches()
+    _reset_launches()
     state, times, per_step, losses = state0, [], [], []
     for b, st in zip(batches, statics):
         before = _launches()
@@ -822,6 +866,314 @@ def train_phase():
     return bool(ok), {"scatter_add_rows": main_recs}, launches
 
 
+# ---------------------------------------------------------------------------
+# The 2x2 stride-2 conv stage (K4)
+# ---------------------------------------------------------------------------
+
+# nlt_tpu's own shapes (conv_stage_pallas.py's docstring) at bs 4, timed.
+CONV_TIMED = [(4, 512, 512, 32, 16), (4, 256, 256, 32, 32),
+              (4, 128, 128, 64, 64)]
+# tests/test_pallas_kernels.py's shapes, an odd C = 5 / O = 3 and a 1x1.
+CONV_EDGE = [(2, 16, 32, 8, 16), (1, 64, 64, 16, 8), (3, 8, 8, 32, 32),
+             (2, 6, 10, 5, 3), (1, 2, 2, 1, 1)]
+
+
+def conv_library(xc, wc, b, slope):
+    """cuDNN's stride-2 conv on NCHW operands (permuted outside the
+    timed region) and a leaky_relu."""
+    f = torch.nn.functional
+    return f.leaky_relu(f.conv2d(xc, wc, b, stride=2), slope)
+
+
+def check_conv(shape, slope, seed, timing=False):
+    n, h, w, c, o = shape
+    g = torch.Generator().manual_seed(seed)
+    lim = (6.0 / (4 * c + 4 * o)) ** 0.5
+    x = torch.randn((n, h, w, c), generator=g).to("cuda")
+    wt = ((torch.rand((2, 2, c, o), generator=g) * 2 - 1) * lim).to("cuda")
+    b = (torch.randn(o, generator=g) * 0.1).to("cuda")
+    with torch.no_grad():
+        # The wrapper, as a caller would call it: it must launch the
+        # kernel exactly once (a plain-version stand-in launches nothing).
+        before = cs.LAUNCHES["conv2x2s2_lrelu"]
+        got = cs.conv2x2s2_lrelu(x, wt, b, slope)
+        launched = cs.LAUNCHES["conv2x2s2_lrelu"] - before
+        want = cs.conv2x2s2_lrelu_ref(x, wt, b, slope)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        ok = (launched == 1 and bool(torch.isfinite(got).all())
+              and err <= CONV_TOL * scale)
+    rec = {"check": "kernel_vs_plain", "kernel": "conv2x2s2_lrelu",
+           "x": [n, h, w, c], "o": o, "negative_slope": slope,
+           "launched": launched, "max_abs_err": err,
+           "tol": CONV_TOL * scale, "ok": ok}
+    if timing:
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        wc = wt.permute(3, 2, 0, 1).contiguous()
+        lib = conv_library(xc, wc, b, slope).permute(0, 2, 3, 1)
+        rec["library_max_abs_err"] = float((lib - want).abs().max())
+        rec["ms"] = time_ms(lambda: cs.conv2x2s2_lrelu(x, wt, b, slope))
+        rec["plain_ms"] = time_ms(
+            lambda: cs.conv2x2s2_lrelu_ref(x, wt, b, slope))
+        rec["library_ms"] = time_ms(lambda: conv_library(xc, wc, b, slope))
+        # Each input read once, the output written once; 2 flops per
+        # multiply-add, float32 outside the tensor cores.
+        nbytes = 4 * (x.numel() + wt.numel() + b.numel() + got.numel())
+        flops = 2 * n * (h // 2) * (w // 2) * 4 * c * o
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        rec.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+    emit(**rec)
+    return rec
+
+
+def conv_phase():
+    """Returns (ok, timed records)."""
+    recs, timed = [], []
+    for i, shape in enumerate(CONV_EDGE):
+        for slope in (0.3, 0.0):
+            recs.append(check_conv(shape, slope, 300 + i))
+    for i, shape in enumerate(CONV_TIMED):
+        recs.append(check_conv(shape, 0.0, 310 + i))
+        timed.append(check_conv(shape, 0.3, 320 + i, timing=True))
+    return all(r["ok"] for r in recs + timed), timed
+
+
+# ---------------------------------------------------------------------------
+# Training from disk: nlt_tpu_torch.trainvali
+# ---------------------------------------------------------------------------
+
+TV_CONFIG = "sphere512_specular.ini"
+TV_EPOCHS = 3
+# Per-epoch loss_train, kernels path against the plain path:
+# - float32: sums in another order (stages, K1's atomics) and the odd
+#   LeakyReLU mask flip; phase 6's whole steps agree to 1e-6, and
+#   AMSGrad's first steps (~lr sign(g)) move a param by 2 lr where a tiny
+#   gradient flips sign: 1e-4.
+# - bfloat16: the two paths round the U-Net at other points (2^-5 of a
+#   stage's scale); phase 6's bf16 step losses agree to ~3e-6, and over
+#   9 steps of updates the epochs read 5.5e-5 apart (H100): 1e-3, 20x
+#   that reading and 1/40 of the loss's change from epoch 1 to 3.
+TV_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# Two runs of one path (resumed against uninterrupted, the main run
+# repeated, with or without prefetched placement): on the H100 the
+# resumed float32 run read equal bit for bit and the prefetched bf16 run
+# 1.6e-7 apart. K1's float atomics add in no fixed order, so equality is
+# not promised, and a flipped last bit of a tiny gradient becomes a 2 lr
+# AMSGrad step: 1e-5, under a fifth of the kernels-vs-plain float32 gap
+# (1.9e-5), so a lost optimizer state or a misordered batch still fails.
+TV_REPEAT_TOL = 1e-5
+
+
+def _scalars(outdir, split):
+    out = {}
+    with open(os.path.join(outdir, "summary_%s" % split,
+                           "scalars.jsonl")) as h:
+        for line in h:
+            r = json.loads(line)
+            if "value" in r and not r["tag"].startswith("text/"):
+                out.setdefault(r["tag"], {})[r["step"]] = r["value"]
+    return out
+
+
+def _epoch_times(outdir):
+    with open(os.path.join(outdir, "epoch_times.jsonl")) as h:
+        return [json.loads(line) for line in h]
+
+
+def run_trainvali(scene, outroot, xname, *sets, profile=False):
+    """One nlt_tpu_torch.trainvali run of the recipe on the scene."""
+    os.environ["NLT_TPU_FUSED_STAGE"] = "1"
+    argv = ["--config", TV_CONFIG, "--set", "data_root=" + scene,
+            "--set", "outroot=" + outroot, "--set", "xname=" + xname,
+            "--set", "epochs=%d" % TV_EPOCHS, "--set", "ckpt_period=1",
+            "--set", "vali_period=1"]
+    for kv in sets:
+        argv += ["--set", kv]
+    if profile:
+        argv.append("--profile")
+    t0 = time.perf_counter()
+    outdir = trainvali.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return outdir, seconds
+
+
+def _losses_close(a, b, rtol):
+    return sorted(a) == sorted(b) and all(
+        np.isfinite(a[e]) and abs(a[e] - b[e]) <= rtol * abs(b[e])
+        for e in a)
+
+
+def trainvali_phase(work, card):
+    """Returns (ok, launches of the main run)."""
+    ok = True
+    t0 = time.perf_counter()
+    scene = os.path.join(work, "scene512")
+    outroot = os.path.join(work, "out")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(repo, "data_gen", "synthesize.py"),
+         "--outroot", scene, "--imh", "512", "--uvs", "512", "--n_cams",
+         "4", "--n_lights", "4", "--n_test", "1"],
+        capture_output=True, text=True)
+    emit(phase="trainvali_scene", rc=proc.returncode,
+         seconds=time.perf_counter() - t0,
+         stderr_tail=proc.stderr[-500:] if proc.returncode else "")
+    if proc.returncode != 0:
+        return False, {}
+
+    # The main path: 3 epochs of the recipe, counters reset.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    main_out, main_s = run_trainvali(scene, outroot, "main")
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    times = _epoch_times(main_out)
+    n_steps = sum(t["batches"] for t in times)
+    tr, va = _scalars(main_out, "train"), _scalars(main_out, "vali")
+    n_vali = len(va.get("loss_vali", {}))
+    want = {k: TRAIN_LAUNCHES[k] * n_steps + EVAL_LAUNCHES[k] * n_vali
+            for k in KERNELS}
+    files_ok = (
+        os.path.isfile(os.path.join(main_out, "checkpoints",
+                                    "%d.pt" % TV_EPOCHS))
+        and bool(glob.glob(os.path.join(main_out, "vis_train", "epoch*",
+                                        "all.html")))
+        and bool(glob.glob(os.path.join(main_out, "vis_vali", "epoch*",
+                                        "all.html")))
+        and bool(glob.glob(os.path.join(main_out, "vis_train", "epoch*",
+                                        "batch*", "*_pred.png"))))
+    losses_ok = (sorted(tr.get("loss_train", {})) == list(
+        range(1, TV_EPOCHS + 1)) and all(
+        np.isfinite(v) for v in tr["loss_train"].values()))
+    psnr_ok = len(va.get("psnr_vali", {})) == TV_EPOCHS and all(
+        np.isfinite(v) for v in va["psnr_vali"].values())
+    main_ok = (launches == want and files_ok and losses_ok and psnr_ok
+               and n_steps == 3 * TV_EPOCHS)
+    emit(phase="trainvali", config=TV_CONFIG, epochs=TV_EPOCHS,
+         steps=n_steps, vali_batches=n_vali, launches=launches,
+         launches_expected=want,
+         launches_rule="12/6/1 per train step + 12/6/0 per vali batch",
+         loss_train=tr.get("loss_train"), loss_vali=va.get("loss_vali"),
+         psnr_vali=va.get("psnr_vali"), files_ok=files_ok,
+         seconds=main_s, ok=bool(main_ok))
+    ok &= main_ok
+
+    # Where the time went (host clock), cold epoch and warm epochs.
+    texels = tr.get("texels_per_sec", {})
+    for t in times:
+        n = max(t["batches"], 1)
+        emit(phase="trainvali_epoch", card=card, epoch=t["epoch"],
+             warm=t["epoch"] > 1, epoch_s=t["epoch_s"], train_s=t["train_s"],
+             s_per_batch=t["train_s"] / n,
+             loader_wait_s_per_batch=t["loader_s"] / n,
+             place_s_per_batch=t["place_s"] / n,
+             step_dispatch_s_per_batch=t["step_s"] / n,
+             epoch_end_sync_s=t["sync_s"], ckpt_s=t["ckpt_s"],
+             train_vis_s=t["train_vis_s"], vali_s=t["vali_s"],
+             texels_per_sec=texels.get(t["epoch"]),
+             feat_cache_mb=t["feat_cache_mb"],
+             device_cache_mb=t["device_cache_mb"])
+    emit(phase="trainvali_memory", card=card, peak_mem_bytes=peak,
+         feat_cache_mb=times[-1]["feat_cache_mb"],
+         device_cache_mb=times[-1]["device_cache_mb"])
+
+    # The device's idle share of a warm epoch: device time over wall time
+    # of one profiled window (epoch 2's training loop of a traced run).
+    prof_out, _ = run_trainvali(scene, outroot, "profiled", "epochs=2",
+                                profile=True)
+    with open(os.path.join(prof_out, "profile", "summary.json")) as h:
+        prof = json.load(h)
+    emit(phase="trainvali_idle", card=card, profiled_steps=prof["steps"],
+         device_s=prof["device_s"], profiled_wall_s=prof["wall_s"],
+         idle_share=(1 - prof["device_s"] / prof["wall_s"]
+                     if prof["device_s"] > 0 else "not measured"))
+
+    # The main run repeated as it was, then with placement on a worker
+    # thread and its own CUDA stream (prefetch_batches): the same batches
+    # in the same order, so the same per-epoch losses; the repeat shows
+    # how far two runs of one path drift on the card.
+    for xname, sets in (("repeat", ()),
+                        ("prefetch", ("prefetch_batches=1",))):
+        rep_out, rep_s = run_trainvali(scene, outroot, xname, *sets)
+        lp = _scalars(rep_out, "train")["loss_train"]
+        rel = max((abs(lp[e] - v) / abs(v)
+                   for e, v in tr["loss_train"].items() if e in lp),
+                  default=float("inf"))
+        warm = _epoch_times(rep_out)[1:]
+        p_ok = _losses_close(lp, tr["loss_train"], TV_REPEAT_TOL)
+        emit(check="trainvali_%s_vs_main" % xname, sets=list(sets),
+             loss_train=lp, loss_train_main=tr["loss_train"],
+             bit_equal=lp == tr["loss_train"], max_rel_diff=rel,
+             rtol=TV_REPEAT_TOL, card=card,
+             warm_s_per_batch=[t["train_s"] / max(t["batches"], 1)
+                               for t in warm],
+             warm_place_s_per_batch=[t["place_s"] / max(t["batches"], 1)
+                                     for t in warm],
+             seconds=rep_s, ok=bool(p_ok))
+        ok &= p_ok
+
+    # Kernels against plain, per-epoch loss_train: bf16 against the main
+    # run; float32 kernels against float32 plain.
+    runs = {}
+    with plain_ops():
+        runs["plain_bf16"] = run_trainvali(scene, outroot, "plain_bf16")[0]
+        runs["plain_f32"] = run_trainvali(scene, outroot, "plain_f32",
+                                          "compute_dtype=float32")[0]
+    runs["kernels_f32"] = run_trainvali(scene, outroot, "kernels_f32",
+                                        "compute_dtype=float32")[0]
+    lt = {k: _scalars(v, "train")["loss_train"] for k, v in runs.items()}
+    lt["kernels_bf16"] = tr["loss_train"]
+    for dtype in ("bfloat16", "float32"):
+        tag = "bf16" if dtype == "bfloat16" else "f32"
+        a, b = lt["kernels_" + tag], lt["plain_" + tag]
+        c_ok = _losses_close(a, b, TV_TOL[dtype])
+        emit(check="trainvali_kernels_vs_plain", dtype=dtype,
+             loss_train_kernels=a, loss_train_plain=b, rtol=TV_TOL[dtype],
+             ok=bool(c_ok))
+        ok &= c_ok
+
+    # Resume: float32 kernels stopped after epoch 2, then resumed to 3.
+    sets = ("compute_dtype=float32", "overwrite=False")
+    run_trainvali(scene, outroot, "resume", "epochs=2", *sets)
+    res_out, _ = run_trainvali(scene, outroot, "resume", *sets)
+    lr_ = _scalars(res_out, "train")["loss_train"]
+    r_ok = _losses_close(lr_, lt["kernels_f32"], TV_REPEAT_TOL)
+    emit(check="trainvali_resume_vs_uninterrupted", loss_train_resumed=lr_,
+         loss_train_uninterrupted=lt["kernels_f32"], rtol=TV_REPEAT_TOL,
+         ok=bool(r_ok))
+    ok &= r_ok
+
+    # Restore the best checkpoint of the main run and serve one request.
+    ckpt_dir = os.path.join(main_out, "checkpoints")
+    cfg = config_mod.read_config(main_out.rstrip("/") + ".ini")
+    model, st = restore_model(cfg, ckpt_dir, step="best", device="cuda")
+    server = Server(ckpt_dir, step="best", config=cfg, pack="uint8")
+    vali = get_dataset_class("nlt")(cfg, "vali")
+    batch = next(iter(vali.iterate(seed=0, drop_remainder=False)))
+    out = server.predict({k: v for k, v in batch.items()
+                          if not isinstance(v, list)})
+    n = len(batch["id"])
+    s_ok = (st["step"] in range(1, TV_EPOCHS + 1)
+            and out["pred_camspc"].dtype == np.uint8
+            and out["pred_camspc"].shape == (n, 512, 512, 3)
+            and out["pred"].shape == (n, 512, 512, 3))
+    best = max(va["psnr_vali"].items(), key=lambda kv: kv[1])[0]
+    emit(check="trainvali_restore_best_and_serve", best_step=st["step"],
+         best_by_scalars=best, served_step=server.state["step"],
+         shapes={k: list(v.shape) for k, v in out.items()},
+         ok=bool(s_ok and st["step"] == best == server.state["step"]))
+    ok &= s_ok and st["step"] == best == server.state["step"]
+    del model, server
+    emit(phase="trainvali_all", seconds=time.perf_counter() - t0,
+         ok=bool(ok))
+    return bool(ok), launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -856,8 +1208,10 @@ def main():
     # 2. Kernels against their plain versions.
     t0 = time.perf_counter()
     kernels_ok = kernel_phase()
-    emit(phase="kernels", ok=kernels_ok, seconds=time.perf_counter() - t0)
-    ok &= kernels_ok
+    conv_ok, conv_recs = conv_phase()
+    emit(phase="kernels", ok=kernels_ok, conv_stage_ok=conv_ok,
+         seconds=time.perf_counter() - t0)
+    ok &= kernels_ok and conv_ok
 
     # 3. Serving: the main path.
     t0 = time.perf_counter()
@@ -870,7 +1224,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     per_request = []
     outs = []
-    fs.reset_launches()
+    _reset_launches()
     for req in reqs1 + [req4]:
         before = dict(fs.LAUNCHES)
         outs.append(server.predict(req))
@@ -942,15 +1296,27 @@ def main():
     emit(phase="training", ok=train_ok, seconds=time.perf_counter() - t0)
     ok &= train_ok
     per_kernel.update(train_recs)
+    per_kernel["conv2x2s2_lrelu"] = conv_recs
+
+    # 7. Training from disk through nlt_tpu_torch.trainvali.
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "nlt_tpu_torch", "_build", "smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        tv_ok, tv_launches = trainvali_phase(work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ok &= tv_ok
 
     kernels = []
-    for kind in ("contract_stage", "expand_stage", "scatter_add_rows"):
+    for kind in KERNELS:
         recs = per_kernel.get(kind, [])
         bound = sum(r["bound_ms"] for r in recs)
         by_bytes = sum(r["bound_ms"] for r in recs
                        if r["bound_by"] == "bytes")
         by_path = {"serve": launches.get(kind, 0),
-                   "train": train_launches[kind]}
+                   "train": train_launches.get(kind, 0),
+                   "trainvali": tv_launches.get(kind, 0)}
         kernels.append({
             "name": kind, "route": "cuda", "source": SOURCES[kind],
             "replaces": REPLACES[kind], "launches": sum(by_path.values()),
@@ -962,13 +1328,17 @@ def main():
             "bound_by": "bytes" if by_bytes >= bound - by_bytes
             else "operations",
             "library_ms": sum(r["library_ms"] for r in recs)})
-        ok &= bool(recs) and train_launches[kind] > 0
+        ok &= bool(recs)
+        if kind != "conv2x2s2_lrelu":  # on no path, as in nlt_tpu
+            ok &= train_launches[kind] > 0 and tv_launches.get(kind, 0) > 0
     emit(phase="summary", ok=bool(ok),
          note="kernel ms/plain_ms/bound_ms/library_ms: contract/expand "
               "summed over the stages of one bs-1 request of the serving "
               "path; scatter_add_rows: the one launch of a bs-4 training "
-              "step. launches: the serving requests and the training "
-              "steps, each counted from 0")
+              "step; conv2x2s2_lrelu: summed over nlt_tpu's three shapes "
+              "at bs 4 (no path runs it). launches: the serving requests, "
+              "the training steps and the trainvali run, each counted "
+              "from 0")
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1

@@ -25,18 +25,29 @@ named outputs (a test-mode server never runs the fg/base resamples).
 Concatenation promotes dtypes as jnp.concatenate does: a float32 obs
 pyramid joined to a bfloat16 query feature map continues in float32.
 
-The losses live in ``models/base.py``; the visualization belongs to
-the test-time entry point and is not ported yet.
+The losses live in ``models/base.py``. The host-side visualization of
+train/vali batches (``vis_batch``, ``compile_batch_vis``'s HTML, the
+``psnr`` metric) is nlt_tpu's; the test-mode video waits for
+``nlt_test.infer`` (ROADMAP.md, queue 1, item 5).
 """
 
+import os
+from glob import glob
+from os.path import join
+
+import numpy as np
 import torch
 
 from .. import losses as losses_mod
 from .. import resolve_device
+from ..metrics import PSNR
 from ..networks import convnet
 from ..ops import resample as resample_mod
 from ..utils import img as imgutil
+from ..utils import io as ioutil
 from ..utils.tree import tree_map
+from ..vis import html as htmlutil
+from ..vis import video as videoutil
 from .base import Model as BaseModel
 
 # Channel counts of the fixed inputs: query = base(3) + cvis(1) + lvis(1);
@@ -112,6 +123,7 @@ class Model(BaseModel):
             raise ValueError("Unknown resample_impl %r"
                              % config.get("resample_impl"))
         self.compute_dtype = _DTYPES[config.get("compute_dtype", "float32")]
+        self.psnr = PSNR(np.float32)
 
     def _init_loss(self):
         """Barron needs the image size."""
@@ -367,3 +379,114 @@ class Model(BaseModel):
             x = obs.stages[i].apply(net_params["obs"][i], x)
             feats.append(x)
         return feats
+
+    # ---- visualization (host-side) ----
+
+    def vis_batch(self, data_dict, outdir, mode, dump_raw_to=None,
+                  text_loc_ratio=0.05, text_size_ratio=0.05,
+                  text_color=(1, 1, 1)):
+        """Write per-sample pngs, APNG comparisons and metadata JSON with
+        PSNRs from host arrays (uint8/float16 as pack_vis left them, or
+        float32)."""
+        is_linear = self.config.get_bool("linear_space")
+        self._validate_mode(mode)
+        os.makedirs(outdir, exist_ok=True)
+        ids = [str(x) for x in data_dict["id"]]
+        nn_ids = [str(x) for x in data_dict["nn_id"]]
+        bases = imgutil.vis_to_float01(data_dict["base_camspc"])
+        preds = imgutil.vis_to_float01(data_dict["pred_camspc"])
+        nns = imgutil.vis_to_float01(data_dict["nn_camspc"])
+        gts = (None if mode == "test"
+               else imgutil.vis_to_float01(data_dict["gt_camspc"]))
+
+        for i in range(len(ids)):
+            imgs = {}
+            base = np.clip(bases[i], 0, 1)
+            pred = np.clip(preds[i], 0, 1)
+            nn = np.clip(nns[i], 0, 1)
+            gt = None if gts is None else np.clip(gts[i], 0, 1)
+            if is_linear:
+                base = imgutil.linear2srgb(base)
+                pred = imgutil.linear2srgb(pred)
+                nn = imgutil.linear2srgb(nn)
+                gt = None if gt is None else imgutil.linear2srgb(gt)
+            imgs["base"] = ioutil.write_img(
+                base, join(outdir, "%d_base.png" % i))
+            imgs["pred"] = ioutil.write_img(
+                pred, join(outdir, "%d_pred.png" % i))
+            ioutil.write_img(nn, join(outdir, "%d_nn.png" % i))
+            imgs["gt"] = None if gt is None else ioutil.write_img(
+                gt, join(outdir, "%d_gt.png" % i))
+
+            hw = base.shape[:2]
+            label_loc = (int(text_loc_ratio * hw[1]),
+                         int(text_loc_ratio * hw[0]))
+            font_size = int(text_size_ratio * hw[0])
+            videoutil.make_apng(
+                (imgs["base"], imgs["pred"]),
+                labels=("Diffuse Base", "Prediction"),
+                label_top_left_xy=label_loc, font_size=font_size,
+                font_color=text_color,
+                outpath=join(outdir, "%d_base-vs-pred.apng" % i))
+            if imgs["gt"] is not None:
+                videoutil.make_apng(
+                    (imgs["gt"], imgs["pred"]),
+                    labels=("Ground Truth", "Prediction"),
+                    label_top_left_xy=label_loc, font_size=font_size,
+                    font_color=text_color,
+                    outpath=join(outdir, "%d_gt-vs-pred.apng" % i))
+
+        for i, id_ in enumerate(ids):
+            metadata = {"id": id_, "nn_id": nn_ids[i]}
+            if gts is not None:
+                pred = np.clip(preds[i], 0, 1)
+                base = np.clip(bases[i], 0, 1)
+                gt = np.clip(gts[i], 0, 1)
+                # PSNR is inf on an exact match; null keeps the JSON
+                # strictly parseable.
+                for key, v in (("pred_psnr", self.psnr(gt, pred)),
+                               ("base_psnr", self.psnr(gt, base))):
+                    metadata[key] = float(v) if np.isfinite(v) else None
+            ioutil.write_json(metadata, join(outdir, "%d_metadata.json" % i))
+
+        if dump_raw_to is not None:
+            raw = {k: np.asarray(v) if not isinstance(v, list) else v
+                   for k, v in data_dict.items()}
+            ioutil.write_pickle(raw, dump_raw_to)
+
+    def compile_batch_vis(self, batch_vis_dirs, outpref, mode, fps=6):
+        """HTML gallery for train/vali; the test-mode video waits for
+        ``nlt_test.infer`` (ROADMAP.md, queue 1, item 5)."""
+        self._validate_mode(mode)
+        if mode == "test":
+            raise NotImplementedError(
+                "the test-mode video is not ported yet (ROADMAP.md, "
+                "queue 1, item 5)")
+        outpath = outpref + ".html"
+        self._compile_into_webpage(batch_vis_dirs, outpath,
+                                   title="NLT (%s)" % mode)
+        return outpath
+
+    @staticmethod
+    def _compile_into_webpage(batch_dirs, out_html, title=None):
+        rows, caps, types = [], [], []
+        for batch_dir in batch_dirs:
+            for metadata_path in sorted(
+                    glob(join(batch_dir, "[0-9]*_metadata.json"))):
+                prefix = metadata_path[:-len("metadata.json")]
+                metadata = str(ioutil.read_json(metadata_path))
+                rows.append([
+                    metadata,
+                    prefix + "base-vs-pred.apng",
+                    prefix + "gt-vs-pred.apng",
+                    prefix + "nn.png"])
+                caps.append([
+                    "Metadata", "Prediction vs. Diffuse Base",
+                    "Prediction vs. Ground Truth", "Nearest Neighbor"])
+                types.append(["text", "image", "image", "image"])
+        assert rows, "No row"
+        page = htmlutil.HTML(title=title)
+        table = page.add_table()
+        for r, rc, rt in zip(rows, caps, types):
+            table.add_row(r, rt, captions=rc)
+        page.save(out_html)

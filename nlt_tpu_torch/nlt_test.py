@@ -2,22 +2,21 @@
 the config path convention, model restore, and the averaged
 observation feature pyramid.
 
-Port checkpoints are ``torch.save`` files of the params tree,
-``<ckpt_dir>/params_<step>.pt`` (``save_params``); a tree converted from
-nlt_tpu with ``convert.params_from_jax`` is saved the same way. The
-video-writing inference entry point (``infer``, ``main``) needs the dataset
-port and is not ported yet.
+Checkpoints are trainvali's (``utils/checkpoint.py``: one
+``<ckpt_dir>/<step>.pt`` per step holding the state tree);
+``save_params`` writes the same format with the params alone (a tree
+converted from nlt_tpu with ``convert.params_from_jax``, for one).
+``restore_model`` prefers the EMA weights where the run kept them, as
+nlt_tpu does. The video-writing inference entry point (``infer``,
+``main``) waits for ROADMAP.md queue 1, item 5.
 """
-
-import glob
-import os
-import re
 
 import numpy as np
 import torch
 
 from . import models as models_mod
 from .models.nlt import normalize_batch, tree_to
+from .utils import checkpoint as ckpt_mod
 from .utils import logging as logutil
 
 logger = logutil.Logger(loggee="nlt_test")
@@ -29,48 +28,35 @@ def get_config_ini(ckpt_dir):
     return outdir + ".ini"
 
 
-def _ckpt_path(ckpt_dir, step):
-    return os.path.join(ckpt_dir, "params_%d.pt" % step)
-
-
 def save_params(params, ckpt_dir, step=0):
-    """Write a port checkpoint of `params` (kept on the CPU)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = _ckpt_path(ckpt_dir, step)
-    torch.save(tree_to(params, "cpu"), path)
-    return path
-
-
-def _steps(ckpt_dir):
-    steps = []
-    for path in glob.glob(os.path.join(ckpt_dir, "params_*.pt")):
-        m = re.fullmatch(r"params_(\d+)\.pt", os.path.basename(path))
-        if m:
-            steps.append(int(m.group(1)))
-    return sorted(steps)
+    """Write a checkpoint holding `params` alone (trainvali's format)."""
+    return ckpt_mod.CheckpointManager(ckpt_dir).save(
+        step, {"params": params, "step": torch.tensor(step)}, force=True)
 
 
 def restore_model(config, ckpt_dir, step=None, device="cuda"):
-    """(model, state) with state = {'params': ..., 'step': ...}: the
-    checkpoint at `step` (latest if None) of `ckpt_dir`, or, if there
-    is none, a fresh init from a torch.Generator seeded with 0."""
+    """(model, state) with state = {'params': ..., 'step': checkpoint
+    step}: the checkpoint at `step` of `ckpt_dir` (None or 'latest': the latest;
+    'best': the best logged psnr_vali; or an int), with the EMA weights
+    where the run kept them; a fresh init from a torch.Generator seeded
+    with 0 when there is no checkpoint at all."""
     model = models_mod.get_model_class(config.get("model"))(
         config, device=device)
-    steps = _steps(ckpt_dir)
-    if step is not None and int(step) not in steps:
+    manager = ckpt_mod.CheckpointManager(ckpt_dir)
+    step = ckpt_mod.resolve_step(ckpt_dir, step)
+    if step is not None and step not in manager.all_steps():
         raise FileNotFoundError(
             "No checkpoint for step %s under %s" % (step, ckpt_dir))
-    if steps:
-        step = int(step) if step is not None else steps[-1]
-        params = torch.load(_ckpt_path(ckpt_dir, step), map_location="cpu",
-                            weights_only=True)
-        params = tree_to(params, model.device)
-    else:
+    if step is None:
+        step = manager.latest_step()
+    tree = manager.load(step)
+    if tree is None:
         logger.warn("No checkpoint found under %s; using fresh init",
                     ckpt_dir)
-        step = 0
         params = model.init_params(torch.Generator().manual_seed(0))
-    return model, {"params": params, "step": step}
+        return model, {"params": params, "step": 0}
+    params = tree.get("ema_params", tree["params"])
+    return model, {"params": tree_to(params, model.device), "step": step}
 
 
 def extract_feat(model, state, dataset, n_obs_batches=1):

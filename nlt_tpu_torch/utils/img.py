@@ -119,6 +119,15 @@ def pack_vis(tree, linear_space=False):
     return {k: pack(v) for k, v in tree.items()}
 
 
+def vis_to_float01(x):
+    """Undo pack_vis on the host: uint8 -> [0, 1] float32, float16 ->
+    float32; float32 passes through."""
+    x = np.asarray(x)
+    if x.dtype == np.uint8:
+        return x.astype(np.float32) / 255.0
+    return np.asarray(x, np.float32)
+
+
 _SRGB_LINEAR_THRES = 0.0031308
 _SRGB_LINEAR_COEFF = 12.92
 _SRGB_EXP_COEFF = 1.055
@@ -126,7 +135,14 @@ _SRGB_EXPONENT = 2.4
 
 
 def linear2srgb(x):
-    """Linear -> sRGB transfer for [0, 1] inputs."""
+    """Linear -> sRGB transfer for [0, 1] inputs: a tensor, or a numpy
+    array on the host (the vis writer's)."""
+    if not isinstance(x, torch.Tensor):
+        x = np.clip(x, 0.0, 1.0)
+        nonlinear = _SRGB_EXP_COEFF * (
+            x ** (1.0 / _SRGB_EXPONENT)) - (_SRGB_EXP_COEFF - 1.0)
+        return np.where(x <= _SRGB_LINEAR_THRES, x * _SRGB_LINEAR_COEFF,
+                        nonlinear)
     x = torch.clamp(x, 0.0, 1.0)
     linear = x * _SRGB_LINEAR_COEFF
     safe_x = torch.clamp(x, min=1e-12)
