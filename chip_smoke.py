@@ -10,6 +10,14 @@ Phases, each of which must pass for the run to exit 0:
    query and obs paths), in bfloat16 and float32, and at small shapes
    with forced tilings (odd tile counts, ragged edges, one tile, odd
    channel counts). Time kernel, plain version and a cuDNN yardstick.
+   The expand stage has two routes (ops/fused_stage.py): the split
+   kernel (csrc/expand_split.cu, a thread-block cluster per tile) is
+   checked at every flagship expand shape at bs 1 and 4, in both
+   dtypes and both slopes, at forced edge plans (S = 1, 2, 4, 8, 1x1
+   tiles, ragged tiles, C not a multiple of the chunk; C = 33 must be
+   refused), for determinism (two float32 launches bit-identical) and
+   for its shared-memory arithmetic; both routes are timed at every
+   flagship expand shape at bs 1 and 4.
    The same for the 2x2 stride-2 conv stage kernel (K4) at nlt_tpu's
    three shapes at bs 4 (timed), at the shapes of nlt_tpu's kernel
    tests, at an odd C = 5 / O = 3 and with negative_slope 0. No path of
@@ -22,7 +30,9 @@ Phases, each of which must pass for the run to exit 0:
 4. The whole predict through the kernels against the plain path
    (NLT_TPU_FUSED_STAGE=0, same params): float32 compute to 1e-3 and
    uint8 within 1 LSB; bfloat16 compute at a bf16 tolerance.
-5. Serving latency and frames/sec at bs 1 and bs 4, kernels and plain.
+5. Serving latency and frames/sec at bs 1 and bs 4, kernels and plain;
+   device time per request and latency with the expand stages on the
+   tiled route against the planner's routes, in turns.
 6. Training at the flagship recipe's full width (dragon_specular.ini:
    bs 4, 512^2, depth0 16 / depth 256, bf16, barron + LPIPS, AMSGrad
    lr 1e-3, cached statics): the resampler-backward scatter kernel (K1)
@@ -51,8 +61,23 @@ Phases, each of which must pass for the run to exit 0:
 Prints the card's name and power limit, one JSON line per check and
 timing, a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
 Exits non-zero without printing a result when there is no CUDA device.
+
+    python3 chip_smoke.py --expand-route tiled|auto
+
+sends every expand call of the run to the tiled kernel (tiled), or
+leaves it to the planner (auto, the default: the split kernel at the
+plans measured for the flagship stages, the tiled kernel elsewhere).
+
+    python3 chip_smoke.py --sweep [--out DIR]
+
+builds the kernels, then checks and times every split launch plan at
+every flagship expand shape (bs 1 and 4, float32 and bfloat16) beside
+the tiled route, writes one JSON line per plan to DIR/split_sweep.jsonl
+(default chiprun_out) and a summary per stage to stdout, and exits; it
+prints no result line.
 """
 
+import argparse
 import contextlib
 import glob
 import json
@@ -114,7 +139,8 @@ GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -3}
 # another order (~1e-6); 1e-4 leaves a margin of 100.
 CONV_TOL = 1e-4
 SOURCES = {"contract_stage": "nlt_tpu_torch/csrc/fused_stage.cu",
-           "expand_stage": "nlt_tpu_torch/csrc/fused_stage.cu",
+           "expand_stage": "nlt_tpu_torch/csrc/expand_split.cu + "
+                           "nlt_tpu_torch/csrc/fused_stage.cu",
            "scatter_add_rows": "nlt_tpu_torch/csrc/scatter.cu",
            "conv2x2s2_lrelu": "nlt_tpu_torch/csrc/conv_stage.cu"}
 REPLACES = {"contract_stage": "nlt_tpu/ops/fused_stage.py:115",
@@ -275,15 +301,52 @@ def random_stage(n, h, w, c, o, dtype, seed):
     return [a.to("cuda", dtype).contiguous() for a in args]
 
 
-def check_stage(kind, args, slope=0.3, plan=None, timing=False, label=""):
+def set_expand_route(route):
+    """Send expand calls to one route: "tiled" (every call) or "auto"
+    (_split_plan as the package has it)."""
+    global _EXPAND_ROUTE
+    fs._split_plan = {"tiled": lambda *a: None,
+                      "auto": _AUTO_SPLIT_PLAN}[route]
+    _EXPAND_ROUTE = route
+
+
+_AUTO_SPLIT_PLAN = fs._split_plan
+_EXPAND_ROUTE = "auto"
+
+
+def _route_of(kind, args, plan, split):
+    """(route, plan) a _launch with these overrides takes."""
+    x, w1, w2 = args[0], args[1], args[3]
+    n, h, w, c = x.shape
+    o = w1.shape[3]
+    if kind == "expand_stage" and plan is None:
+        split = split or fs._expand_route(x, w1, w2, c, o)
+        if split is not None:
+            return "split", list(split)
+    return "tiled", list(plan or fs._plan(kind == "contract_stage", n, h, w,
+                                          c, o, x.element_size()))
+
+
+def check_stage(kind, args, slope=0.3, plan=None, timing=False, label="",
+                split=None, time_refs=True):
     """Kernel (y2 and y1) against the plain version on the same inputs;
-    with timing, also kernel, plain and cuDNN times and the bound."""
+    with timing, also kernel, plain and cuDNN times and the bound.
+    `plan` forces the tiled kernel's tiling, `split` the split kernel's
+    plan; neither: the op's route, through the op's own wrapper."""
     x, w1 = args[0], args[1]
     o = w1.shape[3]
     ref = fs.contract_stage_ref if kind == "contract_stage" \
         else fs.expand_stage_ref
+    route, rplan = _route_of(kind, args, plan, split)
+
+    def run(return_y1):
+        if plan is None and split is None:
+            return getattr(fs, kind)(*args, slope=slope, return_y1=return_y1)
+        return fs._launch(kind, *args, slope, return_y1, plan=plan,
+                          split=split)
+
     with torch.no_grad():
-        y2k, y1k = fs._launch(kind, *args, slope, True, plan=plan)
+        y2k, y1k = run(True)
         y2p, y1p = ref(*args, slope)
         torch.cuda.synchronize()
         err = max(float((y2k.float() - y2p.float()).abs().max()),
@@ -294,19 +357,33 @@ def check_stage(kind, args, slope=0.3, plan=None, timing=False, label=""):
             KERNEL_TOL[x.dtype] * scale
         rec = {"check": "kernel_vs_plain", "kernel": kind, "label": label,
                "x": list(x.shape), "o": o, "dtype": str(x.dtype)[6:],
-               "plan": list(plan or fs._plan(
-                   kind == "contract_stage", *x.shape, o, x.element_size())),
+               "slope": slope, "route": route,
+               "s": rplan[2] if route == "split" else 1, "plan": rplan,
                "max_abs_err": err, "scale": scale,
                "tol": KERNEL_TOL[x.dtype] * scale, "ok": ok}
+        if route == "split":
+            # Both routes sum in one order: y2 and y1 bit-equal to the
+            # tiled kernel's (reported, not gated).
+            y2t, y1t = fs._launch(kind, *args, slope, True,
+                                  plan=fs._plan(False, *x.shape, o,
+                                                x.element_size()))
+            rec["equal_to_tiled"] = bool(torch.equal(y2k, y2t)
+                                         and torch.equal(y1k, y1t))
+            if x.dtype == torch.float32:
+                y2b, y1b = fs._launch(kind, *args, slope, True, split=split
+                                      or tuple(rplan))
+                rec["deterministic"] = bool(torch.equal(y2k, y2b)
+                                            and torch.equal(y1k, y1b))
+                rec["ok"] = ok = ok and rec["deterministic"]
         if timing:
-            op = getattr(fs, kind)
-            lib = library_stage(kind, *args, slope)
-            rec["library_max_abs_err"] = float(
-                (lib.float() - y2p.float()).abs().max())
-            rec["ms"] = time_ms(lambda: op(*args, slope=slope))
-            rec["plain_ms"] = time_ms(lambda: ref(*args, slope))
-            rec["library_ms"] = time_ms(
-                lambda: library_stage(kind, *args, slope))
+            rec["ms"] = time_ms(lambda: run(False))
+            if time_refs:
+                lib = library_stage(kind, *args, slope)
+                rec["library_max_abs_err"] = float(
+                    (lib.float() - y2p.float()).abs().max())
+                rec["plain_ms"] = time_ms(lambda: ref(*args, slope))
+                rec["library_ms"] = time_ms(
+                    lambda: library_stage(kind, *args, slope))
             rec["bound_ms"], rec["bound_by"] = stage_bound_ms(kind, x, o)
     emit(**rec)
     return rec
@@ -337,6 +414,43 @@ EDGE_STAGES = [
 ]
 
 
+# Forced split plans (th, tw, s, ch) on small shapes (n, h, w, c), o:
+# every cluster size, 1x1 tiles, ragged last tiles (odd H, W), C below,
+# above and not a multiple of the chunk, R = 2 and 4 pixels per thread.
+# O / S is a multiple of 8, so bfloat16 rows are whole 16-byte copies.
+SPLIT_EDGES = [
+    ((2, 3, 5, 32), 8, (1, 1, 1, 32)),      # S = 1, 1x1 tiles, odd grid
+    ((1, 5, 7, 64), 32, (2, 2, 2, 32)),     # S = 2, ragged
+    ((1, 6, 6, 40), 32, (4, 4, 4, 32)),     # S = 4, C = 32 + 8
+    ((2, 7, 3, 48), 64, (2, 1, 8, 32)),     # S = 8, C = 32 + 16, odd
+    ((1, 4, 4, 16), 16, (1, 2, 2, 64)),     # C below one chunk
+    ((1, 9, 9, 64), 64, (8, 8, 8, 64)),     # R1 = 4, R2 = 2, ragged
+    ((1, 3, 3, 1024), 128, (1, 1, 8, 64)),  # 1x1 tiles, deep C
+]
+
+
+def split_refusal_check():
+    """C = 33 with O = 16: no 16-byte copies fit, so the planner keeps
+    the stage tiled and a forced split launch raises."""
+    recs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        args = random_stage(1, 5, 3, 33, 16, dtype, 150)
+        item = args[0].element_size()
+        fits = [fs._split_fits(33, 16, s, item) for s in fs._SPLIT_S]
+        try:
+            fs._launch("expand_stage", *args, 0.3, True, split=(1, 1, 1, 32))
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        ok = not any(fits) and bool(raised) and fs._expand_route(
+            args[0], args[1], args[3], 33, 16) is None
+        emit(check="split_refuses_c33", dtype=str(dtype)[6:], fits=fits,
+             raised=raised, ok=ok)
+        recs.append({"ok": ok})
+        recs.append(check_stage("expand_stage", args, label="edge_c33"))
+    return recs
+
+
 def kernel_phase():
     recs = []
     for i, (kind, shape, o, plan) in enumerate(EDGE_STAGES):
@@ -345,13 +459,48 @@ def kernel_phase():
                 args = random_stage(*shape, o, dtype, 100 + i)
                 recs.append(check_stage(kind, args, slope, plan=plan,
                                         label="edge"))
+    for i, (shape, o, split) in enumerate(SPLIT_EDGES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for slope in (0.3, 0.0):
+                args = random_stage(*shape, o, dtype, 120 + i)
+                recs.append(check_stage("expand_stage", args, slope,
+                                        split=split, label="split_edge"))
+    recs += split_refusal_check()
     for i, (kind, c, o, h) in enumerate(FLAGSHIP_STAGES):
         for dtype in (torch.bfloat16, torch.float32):
             args = random_stage(1, h, h, c, o, dtype, i)
             recs.append(check_stage(kind, args, timing=True,
                                     label="flagship_bs1"))
-    # The library's shared-memory arithmetic matches the planner's.
-    lib = fs._lib()
+    # The split kernel at every flagship expand shape, bs 1 and 4, both
+    # dtypes and slopes, at its measured plan; both routes timed at both
+    # batch sizes.
+    for i, (kind, c, o, h) in enumerate(FLAGSHIP_STAGES):
+        if kind != "expand_stage":
+            continue
+        for n in (1, 4):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = random_stage(n, h, h, c, o, dtype, 40 + i)
+                best = fs._SPLIT_TUNED.get(
+                    (n, h, h, c, o, args[0].element_size()))
+                if best is None:
+                    emit(check="split_not_routable", x=[n, h, h, c], o=o,
+                         dtype=str(dtype)[6:],
+                         note="O / S cannot be whole 16-byte copies")
+                    continue
+                for slope in (0.3, 0.0):
+                    recs.append(check_stage(kind, args, slope, split=best,
+                                            timing=slope == 0.3,
+                                            label="split_bs%d" % n))
+                # Where a launch's cycles go, per phase (not gated).
+                emit(phase="split_clocks", x=[n, h, h, c], o=o,
+                     dtype=str(dtype)[6:], plan=list(best),
+                     **split_clocks(args, best))
+                tiled = fs._plan(False, n, h, h, c, o, args[0].element_size())
+                recs.append(check_stage(kind, args, plan=tiled, timing=True,
+                                        time_refs=False,
+                                        label="tiled_bs%d" % n))
+    # The libraries' shared-memory arithmetic matches the planner's.
+    lib, slib = fs._lib(), fs._split_lib()
     for kind, c, o, h in FLAGSHIP_STAGES:
         for item in (2, 4):
             plan = fs._plan(kind == "contract_stage", 1, h, h, c, o, item)
@@ -364,7 +513,124 @@ def kernel_phase():
                 recs.append({"ok": False})
                 emit(check="smem_mirror", kernel=kind, c=c, o=o,
                      got=got, want=want, ok=False)
+            if kind != "expand_stage":
+                continue
+            for n in (1, 4):
+                for th, tw, s, ch in fs._split_candidates(n, h, h, c, o,
+                                                          item):
+                    got = (slib.nlt_expand_split_smem_bytes(th, tw, o, s, ch,
+                                                            item),
+                           slib.nlt_expand_split_items(th, tw, o, s, ch,
+                                                       item, 1),
+                           slib.nlt_expand_split_items(th, tw, o, s, ch,
+                                                       item, 2))
+                    want = fs._split_geometry(th, tw, o, s, ch, item)
+                    if tuple(got) != tuple(want):
+                        recs.append({"ok": False})
+                        emit(check="split_smem_mirror", c=c, o=o,
+                             plan=[th, tw, s, ch], item=item, got=got,
+                             want=want, ok=False)
     return all(r["ok"] for r in recs)
+
+
+def split_clocks(args, split, slope=0.3):
+    """Per-phase clocks of one split launch (csrc/expand_split.cu's
+    nlt_expand_split_clocks: thread 0 of every block), averaged over
+    the blocks: cycles of the prologue, phase 1 (and of it the wait for
+    chunks and the issue of chunk copies), the y1 epilogue and first
+    cluster barrier, the exchange and second barrier, phase 2 (and its
+    wait and issue); ns per cycle from the blocks' global timer; the
+    spread of the blocks' start times."""
+    x, w1 = args[0], args[1]
+    n, h, w, c = x.shape
+    o = w1.shape[3]
+    th, tw, s, ch = split
+    blocks = n * s * -(-h // th) * -(-w // tw)
+    clk = torch.zeros((blocks, 12), dtype=torch.int64, device=x.device)
+    y2 = torch.empty((n, 2 * h, 2 * w, o), dtype=x.dtype, device=x.device)
+    lib = fs._split_lib()
+    err = lib.nlt_expand_split_clocks(
+        *[t.data_ptr() for t in args], y2.data_ptr(), None, n, h, w, c, o,
+        *split, float(slope), int(x.dtype == torch.bfloat16),
+        clk.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err != 0:
+        return {"error": lib.nlt_expand_split_error_string(err).decode()}
+    k = clk.double().cpu()
+    cyc = k[:, 6] - k[:, 1]
+    parts = {"prologue": k[:, 2] - k[:, 1], "phase1": k[:, 3] - k[:, 2],
+             "phase1_wait": k[:, 7], "phase1_issue": k[:, 10],
+             "y1_epilogue_barrier1": k[:, 4] - k[:, 3],
+             "exchange_barrier2": k[:, 5] - k[:, 4],
+             "phase2": k[:, 6] - k[:, 5], "phase2_wait": k[:, 8],
+             "phase2_issue": k[:, 11]}
+    ns_per_cycle = float(((k[:, 9] - k[:, 0]) / cyc.clamp_min(1)).mean())
+    return {"blocks": blocks, "cycles": float(cyc.mean()),
+            "ns_per_cycle": ns_per_cycle,
+            "mean_cycles": {p: float(v.mean()) for p, v in parts.items()},
+            "block_start_spread_ns": float(k[:, 0].max() - k[:, 0].min()),
+            "kernel_span_ns": float(k[:, 9].max() - k[:, 0].min())}
+
+
+def split_sweep(out_dir):
+    """Every split plan at every flagship expand shape (bs 1 and 4,
+    float32 and bfloat16): checked against the plain version and the
+    tiled kernel, and timed; the tiled route timed beside it."""
+    os.makedirs(out_dir, exist_ok=True)
+    ok = True
+    with open(os.path.join(out_dir, "split_sweep.jsonl"), "w") as fh:
+        for i, (kind, c, o, h) in enumerate(FLAGSHIP_STAGES):
+            if kind != "expand_stage":
+                continue
+            for n in (1, 4):
+                for dtype in (torch.float32, torch.bfloat16):
+                    args = random_stage(n, h, h, c, o, dtype, 60 + i)
+                    item = args[0].element_size()
+                    with torch.no_grad():
+                        y2p, y1p = fs.expand_stage_ref(*args, 0.3)
+                        tiled = fs._plan(False, n, h, h, c, o, item)
+                        y2t, y1t = fs._launch(kind, *args, 0.3, True,
+                                              plan=tiled)
+                        t_ms = time_ms(lambda: fs._launch(
+                            kind, *args, 0.3, False, plan=tiled), 10, 3)
+                        scale = max(1.0, float(y2p.float().abs().max()))
+                        rows = []
+                        for sp in fs._split_candidates(n, h, h, c, o, item):
+                            y2k, y1k = fs._launch(kind, *args, 0.3, True,
+                                                  split=sp)
+                            torch.cuda.synchronize()
+                            err = max(float((y2k.float() - y2p.float())
+                                            .abs().max()),
+                                      float((y1k.float() - y1p.float())
+                                            .abs().max()))
+                            r = {"x": [n, h, h, c], "o": o,
+                                 "dtype": str(dtype)[6:], "plan": list(sp),
+                                 "ms": time_ms(lambda: fs._launch(
+                                     kind, *args, 0.3, False, split=sp),
+                                     10, 3),
+                                 "equal_to_tiled": bool(
+                                     torch.equal(y2k, y2t)
+                                     and torch.equal(y1k, y1t)),
+                                 "max_abs_err": err,
+                                 "ok": err <= KERNEL_TOL[dtype] * scale}
+                            ok &= r["ok"]
+                            rows.append(r)
+                            fh.write(json.dumps(r) + "\n")
+                    if not rows:
+                        continue
+                    best = min(rows, key=lambda r: r["ms"])
+                    tuned = fs._SPLIT_TUNED.get((n, h, h, c, o, item))
+                    emit(phase="split_sweep", x=[n, h, h, c], o=o,
+                         dtype=str(dtype)[6:], plans=len(rows),
+                         tiled_plan=list(tiled), tiled_ms=t_ms,
+                         best_plan=best["plan"], best_ms=best["ms"],
+                         tuned_plan=tuned and list(tuned),
+                         tuned_ms=next((r["ms"] for r in rows
+                                        if tuple(r["plan"]) == tuned), None),
+                         all_equal_to_tiled=all(r["equal_to_tiled"]
+                                                for r in rows),
+                         ok=all(r["ok"] for r in rows))
+    return ok
 
 
 def capture_stage_inputs(server, req):
@@ -397,7 +663,7 @@ def capture_stage_inputs(server, req):
 def _category(name):
     if "contract_kernel" in name:
         return "contract_stage kernel"
-    if "expand_kernel" in name:
+    if "expand_kernel" in name or "expand_split_kernel" in name:
         return "expand_stage kernel"
     if "Memcpy HtoD" in name or "Memcpy DtoH" in name:
         return name.split(" (")[0].lower()
@@ -408,7 +674,7 @@ def _category(name):
     return "other elementwise/copy"
 
 
-def profile_requests(server, req, n=3):
+def profile_requests(server, req, n=3, label=""):
     """Device time per request by category, from torch.profiler over n
     requests of the main path; the busy share is device time over the
     requests' wall time."""
@@ -437,11 +703,11 @@ def profile_requests(server, req, n=3):
         cats[cat] = cats.get(cat, 0.0) + dev_us / 1e3 / n
         total += dev_us / 1e3 / n
     if total == 0:
-        emit(phase="profile", wall_ms_per_request=wall_ms,
+        emit(phase="profile", label=label, wall_ms_per_request=wall_ms,
              device_ms_per_request="not measured",
              note="torch.profiler recorded no device time")
         return
-    emit(phase="profile", bs=int(req["base"].shape[0]),
+    emit(phase="profile", label=label, bs=int(req["base"].shape[0]),
          wall_ms_per_request=wall_ms, device_ms_per_request=total,
          device_busy_share=total / wall_ms,
          by_category_ms=dict(sorted(cats.items(), key=lambda kv: -kv[1])))
@@ -651,6 +917,7 @@ def profile_train_step(step, state, batch, statics):
         wall_ms = (time.perf_counter() - t0) * 1e3
     named = {"contract_kernel": "fused forward (K2)",
              "expand_kernel": "fused forward (K3)",
+             "expand_split_kernel": "fused forward (K3)",
              "scatter_add_rows_kernel": "resample backward scatter (K1)"}
     cats, total, rest, by_name = {}, 0.0, {}, {}
     for ev in prof.key_averages():
@@ -1175,11 +1442,19 @@ def trainvali_phase(work, card):
     return bool(ok), launches
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--expand-route", choices=("auto", "tiled"),
+                    default="auto")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--out", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "chiprun_out"))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 2
+    set_expand_route(args.expand_route)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.environ["NLT_TPU_FUSED_STAGE"] = "1"
@@ -1199,11 +1474,16 @@ def main():
                      if f.endswith(".cu"))
     _build.build(sources)
     fs._lib()
+    fs._split_lib()
     ptxas = [ln.strip() for name in sources
              for ln in _build.BUILD_LOGS.get(name, "").splitlines()
              if "registers" in ln or "spill" in ln]
     emit(phase="build", sources=sources,
          seconds=time.perf_counter() - t0, ptxas=ptxas)
+    if args.sweep:
+        ok = split_sweep(args.out)
+        emit(phase="split_sweep_all", ok=bool(ok))
+        return 0 if ok else 1
 
     # 2. Kernels against their plain versions.
     t0 = time.perf_counter()
@@ -1277,13 +1557,25 @@ def main():
     ok &= compare_predict(nopyr, nopyr_plain, [reqs1[0]], 0.05, 13,
                           "bfloat16_no_pyramid")
 
-    # 5. Serving latency and throughput, and where a request's time goes.
-    profile_requests(server, reqs1[0])
-    profile_requests(server, req4)
-    profile_requests(nopyr, reqs1[0])
-    for name, srv in (("kernels", server), ("plain", plain),
-                      ("kernels_no_pyramid", nopyr),
-                      ("plain_no_pyramid", nopyr_plain)):
+    # 5. Serving latency and throughput, and where a request's time goes;
+    # the expand stages on the tiled route against this run's routes, in
+    # turns (tiled, run, run, tiled).
+    route = _EXPAND_ROUTE
+    for r in ("tiled", route, route, "tiled"):
+        set_expand_route(r)
+        profile_requests(server, reqs1[0], label="expand_route_" + r)
+        profile_requests(server, req4, label="expand_route_" + r)
+        profile_requests(nopyr, reqs1[0], label="no_pyramid_expand_route_"
+                         + r)
+        for name, srv in (("kernels", server),
+                          ("kernels_no_pyramid", nopyr)):
+            for req in (reqs1[0], req4):
+                stats = srv.benchmark(req, n=20)
+                emit(phase="serving_benchmark", path=name, expand_route=r,
+                     bs=int(req["base"].shape[0]), pack="uint8",
+                     latency_ms=stats["latency_s"] * 1e3, fps=stats["fps"])
+    set_expand_route(route)
+    for name, srv in (("plain", plain), ("plain_no_pyramid", nopyr_plain)):
         for req in (reqs1[0], req4):
             stats = srv.benchmark(req, n=20)
             emit(phase="serving_benchmark", path=name,

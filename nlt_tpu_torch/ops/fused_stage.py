@@ -2,29 +2,45 @@
 mirrored expanding (deconv k2s2 -> lrelu -> deconv k2s1 -> lrelu), each
 as one CUDA kernel launch (port of nlt_tpu/ops/fused_stage.py).
 
-Kernels (csrc/fused_stage.cu, built for sm_90a at first use):
+Kernels (built for sm_90a at first use):
 
 - ``contract_stage`` replaces the Pallas kernel ``_contract_kernel``
-  (nlt_tpu/ops/fused_stage.py, launched by ``_contract_fwd_pallas``);
+  (nlt_tpu/ops/fused_stage.py, launched by ``_contract_fwd_pallas``):
+  ``contract_kernel`` of csrc/fused_stage.cu.
 - ``expand_stage`` replaces ``_expand_kernel`` and its lane-packed twin
   ``_expand_kernel_packed`` (both launched by ``_expand_fwd_pallas``).
   The packing, the row blocks and the halo BlockSpecs are TPU layout
-  devices; one kernel covers every channel count here.
+  devices; two routes cover every channel count here:
+  - the split route, ``expand_split_kernel`` of csrc/expand_split.cu:
+    a thread-block cluster of S blocks per tile, each block one slice
+    of the output channels, y1 shared through distributed shared
+    memory, inputs and weights streamed by cp.async. Made for the deep
+    stages whose one-block-per-tile grid leaves the card idle, it was
+    faster on the H100 at every flagship expand stage it can take, at
+    bs 1 and 4; ``_split_plan`` routes exactly those stages, at the
+    plans measured there (S > 1 on the deep 8^2 to 32^2 stages, S = 1
+    from 64^2 on);
+  - the tiled route, ``expand_kernel`` of csrc/fused_stage.cu, for the
+    rest (``_plan``): the bf16 stage with O = 4, whose O / S slice is
+    no whole 16-byte copy, and every shape of another recipe or batch
+    size, where no plan was measured.
+  A call whose pointers are off a 16-byte boundary stays tiled.
 
 What bounds them on the H100: per output pixel a stage reads 4C inputs
 and does 4CO + 4OO multiply-adds, about O + O^2/C FLOP per byte in
 bf16. The thin high-resolution stages of the flagship U-Net sit below
 the card's ~295 FLOP/byte ridge (bound by bytes), the 256-channel ones
-above it (bound by operations). The design keeps the intermediate y1 in
+above it (bound by operations); the deep expand stages do so little work
+that latency bounds them. The design keeps the intermediate y1 in
 shared memory (the one thing the fusion is for: y1 never goes to
 device memory unless asked) and streams the input channels in chunks,
 so no stage's width is limited by shared memory. Products run on the
-CUDA cores in float32; tensor cores, TMA and pipelining are later work.
+CUDA cores in float32.
 
 On a CPU tensor each op runs its plain PyTorch version
 (``contract_stage_ref`` / ``expand_stage_ref``, straight ports of the
 JAX references); on a CUDA tensor it launches its kernel or raises.
-``LAUNCHES`` counts kernel launches per op.
+``LAUNCHES`` counts kernel launches per op (one per call, either route).
 
 Gradients: when an input requires grad, the op runs as the
 ``ContractStage`` / ``ExpandStage`` autograd Function, whose forward is
@@ -38,7 +54,8 @@ Numerics follow the Pallas kernels: float32 accumulation, the bias
 added in float32, y1 and y2 rounded to the activation dtype once each
 after the activation. The plain versions follow nlt_tpu's references,
 which under bfloat16 round every tap's product before the sum; the two
-agree exactly in float32 up to summation order.
+agree exactly in float32 up to summation order. Both expand routes sum
+in one order, so they agree bit for bit.
 """
 
 import ctypes
@@ -59,6 +76,13 @@ _TILE = 4096              # kernel's BM * BN
 _PAD_A = 4                # kernel's As row padding
 _BNS = (16, 32, 64, 128, 256)
 _TILES = (1, 2, 4, 8, 16, 32)
+# The split expand kernel (csrc/expand_split.cu).
+_SPLIT_THREADS = 256
+_SPLIT_STAGES = 3          # cp.async ring depth
+_SPLIT_RS = (1, 2, 4)      # pixels per thread item
+_SPLIT_S = (1, 2, 4, 8)    # blocks per cluster (the portable limit)
+_SPLIT_CHUNKS = (32, 64)   # input channels per chunk
+_SPLIT_TILES = (1, 2, 4, 8)
 
 
 def reset_launches():
@@ -174,12 +198,119 @@ def _plan(contract, n, h, w, c, o, itemsize):
     return best[1]
 
 
+def _split_geometry(th, tw, o, s, ch, itemsize):
+    """(shared-memory bytes, R1, R2) of a split launch; mirrors csrc
+    expand_split.cu's Geo and pick_r (R = 0: the product does not fit
+    the block's threads)."""
+    os_, ve = o // s, 16 // itemsize
+    m1 = (th + 1) * (tw + 1)
+    ny1 = (2 * th + 1) * (2 * tw + 1)
+    stage = (m1 * (ch + ve) + 4 * ch * os_) * itemsize
+    smem = (_SPLIT_STAGES * stage + _ceil_to(ny1 * (o + ve) * itemsize, 16)
+            + _ceil_to(m1 * 4, 16))
+    groups = [(th + q // 2) * (tw + q % 2) for q in range(4)]
+    r1 = next((r for r in _SPLIT_RS if sum(-(-m // r) for m in groups)
+               * (os_ // 4) <= _SPLIT_THREADS), 0)
+    r2 = next((r for r in _SPLIT_RS if -(-4 * th * tw // r) * (os_ // 4)
+               <= _SPLIT_THREADS), 0)
+    return smem, r1, r2
+
+
+def _split_fits(c, o, s, itemsize):
+    """The split kernel's 16-byte copies can take C and the O/S slice."""
+    ve = 16 // itemsize
+    return (s in _SPLIT_S and o % s == 0 and (o // s) % ve == 0
+            and (o // s) % 4 == 0 and c % ve == 0)
+
+
+def _split_candidates(n, h, w, c, o, itemsize):
+    """Every split launch (th, tw, s, ch) the kernel takes for a stage."""
+    out = []
+    for th in [t for t in _SPLIT_TILES if t < 2 * h]:
+        for tw in [t for t in _SPLIT_TILES if t < 2 * w]:
+            for s in _SPLIT_S:
+                if not _split_fits(c, o, s, itemsize):
+                    continue
+                for ch in _SPLIT_CHUNKS:
+                    smem, r1, r2 = _split_geometry(th, tw, o, s, ch,
+                                                   itemsize)
+                    if smem <= _SMEM_MAX and r1 and r2:
+                        out.append((th, tw, s, ch))
+    return out
+
+
+# The split route's plans, keyed (n, h, w, c, o, itemsize): the flagship
+# expand stages at bs 1 and 4, where `python3 chip_smoke.py --sweep` on
+# an H100 SXM (700 W) timed every candidate beside the tiled kernel and
+# the split kernel won at every stage it can take (2.3-18x at 8^2 to
+# 32^2, 2.2-2.7x at 64^2 to 256^2). The deep stages (8^2 to 32^2) keep
+# the fastest plan with S > 1 (at 32^2 bf16 bs 1 it is 7% behind an
+# S = 1 plan); from 64^2 on, with tiles enough for the card, S = 1 won.
+# A stage of another recipe joins once a sweep has timed its shapes.
+_SPLIT_TUNED = {
+    (1, 8, 8, 1024, 128, 2): (2, 4, 8, 64),
+    (1, 8, 8, 1024, 128, 4): (2, 4, 8, 64),
+    (1, 16, 16, 640, 64, 2): (4, 1, 2, 64),
+    (1, 16, 16, 640, 64, 4): (4, 1, 2, 64),
+    (1, 32, 32, 320, 32, 2): (4, 4, 2, 64),
+    (1, 32, 32, 320, 32, 4): (4, 4, 2, 64),
+    (1, 64, 64, 160, 16, 2): (8, 4, 1, 64),
+    (1, 64, 64, 160, 16, 4): (8, 4, 1, 64),
+    (1, 128, 128, 80, 8, 2): (8, 8, 1, 32),
+    (1, 128, 128, 80, 8, 4): (8, 8, 1, 32),
+    (1, 256, 256, 40, 4, 4): (8, 8, 1, 64),
+    (4, 8, 8, 1024, 128, 2): (4, 1, 2, 64),
+    (4, 8, 8, 1024, 128, 4): (1, 4, 2, 64),
+    (4, 16, 16, 640, 64, 2): (8, 2, 2, 64),
+    (4, 16, 16, 640, 64, 4): (4, 4, 2, 64),
+    (4, 32, 32, 320, 32, 2): (8, 4, 2, 32),
+    (4, 32, 32, 320, 32, 4): (4, 8, 2, 32),
+    (4, 64, 64, 160, 16, 2): (8, 4, 1, 32),
+    (4, 64, 64, 160, 16, 4): (8, 4, 1, 64),
+    (4, 128, 128, 80, 8, 2): (8, 8, 1, 64),
+    (4, 128, 128, 80, 8, 4): (8, 8, 1, 64),
+    (4, 256, 256, 40, 4, 4): (8, 8, 1, 64),
+}
+
+
+def _split_plan(n, h, w, c, o, itemsize):
+    """(th, tw, s, chunk) of the split expand route, or None to stay on
+    the tiled kernel: the measured plan of _SPLIT_TUNED, so only a stage
+    whose two routes were timed on the card takes the split kernel."""
+    return _SPLIT_TUNED.get((n, h, w, c, o, itemsize))
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
 
 _LIB = None
+_SPLIT_LIB = None
+
+
+def _split_lib():
+    """The split expand kernel's library, built and typed at first use."""
+    global _SPLIT_LIB
+    if _SPLIT_LIB is None:
+        from . import _build
+
+        lib = _build.load("expand_split")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.nlt_expand_split.argtypes = ([p] * 7 + [i] * 9
+                                         + [ctypes.c_float, i, p])
+        lib.nlt_expand_split.restype = i
+        lib.nlt_expand_split_clocks.argtypes = ([p] * 7 + [i] * 9
+                                                + [ctypes.c_float, i, p, p])
+        lib.nlt_expand_split_clocks.restype = i
+        lib.nlt_expand_split_smem_bytes.argtypes = [i] * 6
+        lib.nlt_expand_split_smem_bytes.restype = ctypes.c_longlong
+        lib.nlt_expand_split_items.argtypes = [i] * 7
+        lib.nlt_expand_split_items.restype = i
+        lib.nlt_expand_split_error_string.argtypes = [i]
+        lib.nlt_expand_split_error_string.restype = ctypes.c_char_p
+        _SPLIT_LIB = lib
+    return _SPLIT_LIB
 
 
 def _lib():
@@ -237,31 +368,51 @@ def _check(kind, x, w1, b1, w2, b2):
         raise ValueError("%s: tensor too large for 32-bit offsets" % kind)
 
 
-def _launch(kind, x, w1, b1, w2, b2, slope, return_y1, plan=None):
-    """Launch the kernel on checked CUDA tensors; `plan` (th, tw, bn1,
-    bn2) overrides the planned tiling."""
+def _expand_route(x, w1, w2, c, o):
+    """The split plan an expand call takes (_split_plan, if the pointers
+    allow 16-byte copies), or None for the tiled kernel."""
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        return None
+    return _split_plan(*x.shape[:3], c, o, x.element_size())
+
+
+def _launch(kind, x, w1, b1, w2, b2, slope, return_y1, plan=None,
+            split=None):
+    """Launch the kernel on checked CUDA tensors. `plan` (th, tw, bn1,
+    bn2) forces the tiled kernel and its tiling, `split` (th, tw, s, ch)
+    the split expand kernel and its plan; neither: the op's route."""
     contract = kind == "contract_stage"
     n, h, w, c = x.shape
     o = w1.shape[3]
     oh, ow = (h // 2, w // 2) if contract else (2 * h, 2 * w)
     y2 = torch.empty((n, oh, ow, o), dtype=x.dtype, device=x.device)
     y1 = torch.empty_like(y2) if return_y1 else None
-    th, tw, bn1, bn2 = plan or _plan(contract, n, h, w, c, o,
-                                     x.element_size())
-    lib = _lib()
-    fn = lib.nlt_contract_stage if contract else lib.nlt_expand_stage
+    if not contract and plan is None and split is None:
+        split = _expand_route(x, w1, w2, c, o)
+    is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), y2.data_ptr(),
-                 y1.data_ptr() if y1 is not None else None,
-                 n, h, w, c, o, th, tw, bn1, bn2, float(slope),
-                 int(x.dtype == torch.bfloat16), stream)
+        ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), y2.data_ptr(),
+                y1.data_ptr() if y1 is not None else None)
+        if split is not None:
+            lib = _split_lib()
+            err = lib.nlt_expand_split(*ptrs, n, h, w, c, o, *split,
+                                       float(slope), is_bf16, stream)
+            what = "expand_split plan th=%d tw=%d s=%d ch=%d" % split
+            msg = lib.nlt_expand_split_error_string
+        else:
+            th, tw, bn1, bn2 = plan or _plan(contract, n, h, w, c, o,
+                                             x.element_size())
+            lib = _lib()
+            fn = lib.nlt_contract_stage if contract else lib.nlt_expand_stage
+            err = fn(*ptrs, n, h, w, c, o, th, tw, bn1, bn2, float(slope),
+                     is_bf16, stream)
+            what = "plan th=%d tw=%d bn1=%d bn2=%d" % (th, tw, bn1, bn2)
+            msg = lib.nlt_error_string
     if err != 0:
-        raise RuntimeError("%s kernel launch failed: %s (plan th=%d tw=%d "
-                           "bn1=%d bn2=%d, x %s, O=%d)" % (
-                               kind, lib.nlt_error_string(err).decode(),
-                               th, tw, bn1, bn2, tuple(x.shape), o))
+        raise RuntimeError("%s kernel launch failed: %s (%s, x %s, O=%d)" % (
+            kind, msg(err).decode(), what, tuple(x.shape), o))
     LAUNCHES[kind] += 1
     return (y2, y1) if return_y1 else y2
 

@@ -127,6 +127,137 @@ def test_launch_plan_fits_every_flagship_stage(itemsize):
             assert bn1 in tfs._BNS and bn2 in tfs._BNS
 
 
+# The tiled kernel's plans (th, tw, bn1, bn2) of every flagship stage, by
+# (bs, itemsize): (1, 2), (1, 4), (4, 2), (4, 4). Pinned so that the
+# split expand route leaves the contract route and the tiled expand
+# route's tilings as they were.
+TILED_PLANS = {
+    (True, 32, 16, 512): [(4, 32, 16, 16)] * 2 + [(16, 32, 16, 16),
+                                                  (8, 32, 16, 16)],
+    (True, 32, 32, 256): [(2, 32, 32, 32)] * 2 + [(4, 32, 16, 32)] * 2,
+    (True, 64, 64, 128): [(2, 16, 64, 64)] * 4,
+    (True, 128, 128, 64): [(2, 8, 128, 128)] * 4,
+    (True, 256, 256, 32): [(2, 4, 256, 256)] * 4,
+    (True, 512, 256, 16): [(2, 4, 256, 256)] * 4,
+    (True, 16, 16, 512): [(4, 32, 16, 16)] * 2 + [(16, 32, 16, 16),
+                                                  (8, 32, 16, 16)],
+    (True, 16, 32, 256): [(2, 32, 32, 32)] * 2 + [(4, 32, 16, 32)] * 2,
+    (True, 32, 64, 128): [(2, 16, 64, 64)] * 4,
+    (True, 64, 128, 64): [(2, 8, 128, 128)] * 4,
+    (True, 128, 256, 32): [(2, 4, 256, 256)] * 4,
+    (True, 256, 256, 16): [(2, 4, 256, 256)] * 4,
+    (False, 1024, 128, 8): [(2, 4, 256, 128)] * 4,
+    (False, 640, 64, 16): [(2, 4, 256, 64)] * 4,
+    (False, 320, 32, 32): [(2, 8, 128, 32)] * 4,
+    (False, 160, 16, 64): [(2, 16, 64, 16)] * 4,
+    (False, 80, 8, 128): [(2, 32, 32, 16)] * 2 + [(4, 32, 16, 16)] * 2,
+    (False, 40, 4, 256): [(4, 32, 16, 16)] * 2 + [(16, 32, 16, 16),
+                                                 (8, 32, 16, 16)],
+}
+
+
+@pytest.mark.parametrize("stage", FLAGSHIP_STAGES)
+def test_tiled_plan_is_pinned(stage):
+    contract, c, o, h = stage
+    got = [tfs._plan(contract, n, h, h, c, o, item)
+           for n in (1, 4) for item in (2, 4)]
+    assert got == TILED_PLANS[stage]
+
+
+# Expand stages the split route leaves on the tiled kernel, by (bs,
+# itemsize): only bf16 O = 4, whose O / S slice is never a whole 16-byte
+# copy.
+SPLIT_KEPT_TILED = {(40, 4, 256, 1, 2), (40, 4, 256, 4, 2)}
+
+
+@pytest.mark.parametrize("stage", [s for s in FLAGSHIP_STAGES if not s[0]])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_split_plan_of_every_flagship_expand_stage(stage, itemsize):
+    """_split_plan at bs 1 and 4: a plan that fits a block's shared
+    memory and threads, S in 1, 2, 4, 8 dividing O with whole 16-byte
+    rows, and clusters of S blocks that cover the stage's grid; None
+    where the tiled kernel keeps the stage."""
+    _, c, o, h = stage
+    for n in (1, 4):
+        plan = tfs._split_plan(n, h, h, c, o, itemsize)
+        if (c, o, h, n, itemsize) in SPLIT_KEPT_TILED:
+            assert plan is None
+            continue
+        assert plan is not None
+        th, tw, s, ch = plan
+        assert s in (1, 2, 4, 8) and o % s == 0
+        assert (o // s) * itemsize % 16 == 0 and c * itemsize % 16 == 0
+        assert ch in tfs._SPLIT_CHUNKS
+        smem, r1, r2 = tfs._split_geometry(th, tw, o, s, ch, itemsize)
+        assert smem <= tfs._SMEM_MAX and r1 in (1, 2, 4) and r2 in (1, 2, 4)
+        # ceil(H / th) x ceil(W / tw) tiles per image, each a cluster of
+        # S blocks, cover every input pixel once.
+        assert -(-h // th) * th >= h > (-(-h // th) - 1) * th
+        assert -(-h // tw) * tw >= h > (-(-h // tw) - 1) * tw
+        assert plan in tfs._split_candidates(n, h, h, c, o, itemsize)
+        # The deep stages (8^2 to 32^2), whose tiled grids leave SMs
+        # idle, run as real clusters.
+        if h <= 32:
+            assert s > 1
+
+
+def test_split_tuned_plans_are_candidates():
+    """Every measured plan is one the kernel takes for its stage."""
+    for (n, h, w, c, o, item), plan in tfs._SPLIT_TUNED.items():
+        assert plan in tfs._split_candidates(n, h, w, c, o, item)
+
+
+@pytest.mark.parametrize("n,h,w,c,o,itemsize", [
+    (1, 5, 3, 33, 16, 4),      # C = 33: x rows are no whole 16-byte copies
+    (1, 5, 3, 33, 16, 2),
+    (1, 8, 8, 64, 4, 2),       # bf16 O = 4: no O / S slice of 16 bytes
+    (1, 8, 8, 64, 6, 4),       # O = 6: no S gives whole float4 groups
+    (64, 256, 256, 40, 4, 4),  # shapes no plan was measured at: bs 64,
+    (2, 8, 8, 1024, 128, 4),   # bs 2 (the 128^2 recipes' batch),
+    (2, 32, 32, 320, 32, 2),
+    (4, 8, 8, 2048, 512, 2),   # a wider deep stage
+])
+def test_split_plan_keeps_stage_tiled(n, h, w, c, o, itemsize):
+    assert tfs._split_plan(n, h, w, c, o, itemsize) is None
+
+
+def test_split_route_only_where_measured():
+    """The split route takes only the flagship expand stages at bs 1 and
+    4, the shapes whose two routes were timed on the card."""
+    measured = {(n, h, h, c, o, item) for contract, c, o, h in FLAGSHIP_STAGES
+                if not contract for n in (1, 4) for item in (2, 4)}
+    assert set(tfs._SPLIT_TUNED) <= measured
+    for key in measured:
+        assert tfs._split_plan(*key) == tfs._SPLIT_TUNED.get(key)
+
+
+def test_split_geometry_by_hand():
+    """One launch's shared memory and thread items, computed by hand from
+    csrc/expand_split.cu's layout: 3 ring stages of (9 pixels x (64 + 4)
+    channels + 4 parities x 64 rows x 16 channels) floats, the 5 x 5 y1
+    tile at 128 + 4 channels, 9 pixel offsets; 25 y1 pixels x 4 channel
+    groups = 100 phase-1 items and 16 x 4 = 64 phase-2 items, R = 1."""
+    stage = (9 * 68 + 4 * 64 * 16) * 4
+    want = 3 * stage + 25 * 132 * 4 + 48
+    assert tfs._split_geometry(2, 2, 128, 8, 64, 4) == (want, 1, 1)
+    # 8 x 8 tiles, O / S = 8: 289 y1 pixels x 2 groups need R1 = 4 (73
+    # groups x 2 = 146 items), 256 y2 pixels x 2 need R2 = 2.
+    assert tfs._split_geometry(8, 8, 64, 8, 64, 4)[1:] == (4, 2)
+    # A product no R <= 4 fits in 256 threads.
+    assert tfs._split_geometry(8, 8, 128, 1, 32, 4)[1] == 0
+
+
+def test_expand_route_on_tensors():
+    """An expand call takes _split_plan's route; a pointer off a 16-byte
+    boundary keeps the tiled kernel."""
+    x = torch.zeros(1, 8, 8, 1024)
+    w1, w2 = torch.zeros(2, 2, 1024, 128), torch.zeros(2, 2, 128, 128)
+    want = tfs._split_plan(1, 8, 8, 1024, 128, 4)
+    assert want is not None
+    assert tfs._expand_route(x, w1, w2, 1024, 128) == want
+    off = torch.zeros(1 + 8 * 8 * 1024)[1:].view(1, 8, 8, 1024)
+    assert tfs._expand_route(off, w1, w2, 1024, 128) is None
+
 
 def _grads(op, args, g, **kw):
     """(y2, d_args) of the port's op under autograd."""
