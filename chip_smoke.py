@@ -10,14 +10,19 @@ Phases, each of which must pass for the run to exit 0:
    query and obs paths), in bfloat16 and float32, and at small shapes
    with forced tilings (odd tile counts, ragged edges, one tile, odd
    channel counts). Time kernel, plain version and a cuDNN yardstick.
-   The expand stage has two routes (ops/fused_stage.py): the split
-   kernel (csrc/expand_split.cu, a thread-block cluster per tile) is
-   checked at every flagship expand shape at bs 1 and 4, in both
-   dtypes and both slopes, at forced edge plans (S = 1, 2, 4, 8, 1x1
+   Each stage op has two routes (ops/fused_stage.py): a split kernel
+   (csrc/contract_split.cu, csrc/expand_split.cu: a thread-block
+   cluster per tile) for the shapes with a measured plan, else the
+   tiled kernel (csrc/fused_stage.cu). Each split kernel is checked at
+   every flagship shape it is routed at, bs 1 and 4, in both dtypes
+   and both slopes, at forced edge plans (every cluster size, 1x1
    tiles, ragged tiles, C not a multiple of the chunk; C = 33 must be
-   refused), for determinism (two float32 launches bit-identical) and
-   for its shared-memory arithmetic; both routes are timed at every
-   flagship expand shape at bs 1 and 4.
+   refused), for determinism (two float32 launches bit-identical), for
+   equality with the tiled kernel and for its shared-memory
+   arithmetic; both routes are timed there at bs 1 and 4, with
+   per-phase clocks. Both ops are also checked and timed at every stage
+   shape of dragon_sss.ini (depth 1024, bs 4) and sphere_synthetic.ini
+   (128^2, depth 32, bs 2), on whatever route each takes.
    The same for the 2x2 stride-2 conv stage kernel (K4) at nlt_tpu's
    three shapes at bs 4 (timed), at the shapes of nlt_tpu's kernel
    tests, at an odd C = 5 / O = 3 and with negative_slope 0. No path of
@@ -31,7 +36,7 @@ Phases, each of which must pass for the run to exit 0:
    (NLT_TPU_FUSED_STAGE=0, same params): float32 compute to 1e-3 and
    uint8 within 1 LSB; bfloat16 compute at a bf16 tolerance.
 5. Serving latency and frames/sec at bs 1 and bs 4, kernels and plain;
-   device time per request and latency with the expand stages on the
+   device time per request and latency with each op's stages on the
    tiled route against the planner's routes, in turns.
 6. Training at the flagship recipe's full width (dragon_specular.ini:
    bs 4, 512^2, depth0 16 / depth 256, bf16, barron + LPIPS, AMSGrad
@@ -62,19 +67,20 @@ Prints the card's name and power limit, one JSON line per check and
 timing, a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
 Exits non-zero without printing a result when there is no CUDA device.
 
-    python3 chip_smoke.py --expand-route tiled|auto
+    python3 chip_smoke.py --expand-route tiled|auto --contract-route tiled|auto
 
-sends every expand call of the run to the tiled kernel (tiled), or
-leaves it to the planner (auto, the default: the split kernel at the
-plans measured for the flagship stages, the tiled kernel elsewhere).
+sends every expand (contract) call of the run to the tiled kernel
+(tiled), or leaves it to the planner (auto, the default: the split
+kernel at the plans measured on the card, the tiled kernel elsewhere).
 
     python3 chip_smoke.py --sweep [--out DIR]
 
-builds the kernels, then checks and times every split launch plan at
-every flagship expand shape (bs 1 and 4, float32 and bfloat16) beside
-the tiled route, writes one JSON line per plan to DIR/split_sweep.jsonl
-(default chiprun_out) and a summary per stage to stdout, and exits; it
-prints no result line.
+builds the kernels, then checks and times every split launch plan of
+both ops at every flagship stage shape (bs 1 and 4) and every
+RECIPE_STAGES shape, float32 and bfloat16, beside the tiled route,
+writes one JSON line per plan to DIR/split_sweep.jsonl (default
+chiprun_out) and a summary per stage to stdout, and exits; it prints no
+result line.
 """
 
 import argparse
@@ -86,6 +92,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -138,7 +145,8 @@ GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -3}
 # largest magnitude (at least 1): float32 sums of 4C <= 256 products in
 # another order (~1e-6); 1e-4 leaves a margin of 100.
 CONV_TOL = 1e-4
-SOURCES = {"contract_stage": "nlt_tpu_torch/csrc/fused_stage.cu",
+SOURCES = {"contract_stage": "nlt_tpu_torch/csrc/contract_split.cu + "
+                             "nlt_tpu_torch/csrc/fused_stage.cu",
            "expand_stage": "nlt_tpu_torch/csrc/expand_split.cu + "
                            "nlt_tpu_torch/csrc/fused_stage.cu",
            "scatter_add_rows": "nlt_tpu_torch/csrc/scatter.cu",
@@ -301,30 +309,36 @@ def random_stage(n, h, w, c, o, dtype, seed):
     return [a.to("cuda", dtype).contiguous() for a in args]
 
 
-def set_expand_route(route):
-    """Send expand calls to one route: "tiled" (every call) or "auto"
-    (_split_plan as the package has it)."""
-    global _EXPAND_ROUTE
-    fs._split_plan = {"tiled": lambda *a: None,
-                      "auto": _AUTO_SPLIT_PLAN}[route]
-    _EXPAND_ROUTE = route
+# The split-route planner of each op, as the package has it.
+_PLANNERS = {"contract_stage": "_contract_split_plan",
+             "expand_stage": "_split_plan"}
+_AUTO_PLANS = {k: getattr(fs, v) for k, v in _PLANNERS.items()}
+ROUTES = {"contract_stage": "auto", "expand_stage": "auto"}
 
 
-_AUTO_SPLIT_PLAN = fs._split_plan
-_EXPAND_ROUTE = "auto"
+def set_route(kind, route):
+    """Send the calls of one op to one route: "tiled" (every call) or
+    "auto" (its split planner as the package has it)."""
+    setattr(fs, _PLANNERS[kind], {"tiled": lambda *a: None,
+                                  "auto": _AUTO_PLANS[kind]}[route])
+    ROUTES[kind] = route
+
+
+def _tiled_plan(kind, x, o):
+    return fs._plan(kind == "contract_stage", *x.shape, o, x.element_size())
 
 
 def _route_of(kind, args, plan, split):
     """(route, plan) a _launch with these overrides takes."""
     x, w1, w2 = args[0], args[1], args[3]
-    n, h, w, c = x.shape
-    o = w1.shape[3]
-    if kind == "expand_stage" and plan is None:
-        split = split or fs._expand_route(x, w1, w2, c, o)
+    c, o = x.shape[3], w1.shape[3]
+    if plan is None:
+        route = fs._contract_route if kind == "contract_stage" \
+            else fs._expand_route
+        split = split or route(x, w1, w2, c, o)
         if split is not None:
             return "split", list(split)
-    return "tiled", list(plan or fs._plan(kind == "contract_stage", n, h, w,
-                                          c, o, x.element_size()))
+    return "tiled", list(plan or _tiled_plan(kind, x, o))
 
 
 def check_stage(kind, args, slope=0.3, plan=None, timing=False, label="",
@@ -365,8 +379,7 @@ def check_stage(kind, args, slope=0.3, plan=None, timing=False, label="",
             # Both routes sum in one order: y2 and y1 bit-equal to the
             # tiled kernel's (reported, not gated).
             y2t, y1t = fs._launch(kind, *args, slope, True,
-                                  plan=fs._plan(False, *x.shape, o,
-                                                x.element_size()))
+                                  plan=_tiled_plan(kind, x, o))
             rec["equal_to_tiled"] = bool(torch.equal(y2k, y2t)
                                          and torch.equal(y1k, y1t))
             if x.dtype == torch.float32:
@@ -400,6 +413,33 @@ FLAGSHIP_STAGES = (
         (1024, 128, 8), (640, 64, 16), (320, 32, 32), (160, 16, 64),
         (80, 8, 128), (40, 4, 256)]])
 
+# Every stage shape of two other shipped recipes' U-Nets, in the order
+# their forward calls them (obs, then query, per contracting level):
+# recipe -> (batch size, compute dtype, [(kind, C, O, input H = W)]).
+# dragon_sss.ini (like the other *_sss.ini): 512^2, depth0 16 / depth
+# 1024, bs 4, bf16; sphere_synthetic.ini (like sphere_viewsyn.ini and
+# sphere_relight_identity.ini): 128^2, depth 32, bs 2, float32.
+# tests/test_torch_fused_stage.py holds this list against the calls the
+# port's model makes under each recipe's keys.
+RECIPE_STAGES = {
+    "dragon_sss.ini": (4, "bfloat16", [
+        ("contract_stage", c, o, h) for c, o, h in [
+            (16, 16, 512), (32, 16, 512), (16, 32, 256), (32, 32, 256),
+            (32, 64, 128), (64, 64, 128), (64, 128, 64), (128, 128, 64),
+            (128, 256, 32), (256, 256, 32), (256, 512, 16), (512, 512, 16),
+            (512, 1024, 8), (1024, 1024, 8), (1024, 1024, 4),
+            (2048, 1024, 4)]] + [
+        ("expand_stage", c, o, h) for c, o, h in [
+            (4096, 512, 2), (2560, 256, 4), (1280, 128, 8), (640, 64, 16),
+            (320, 32, 32), (160, 16, 64), (80, 8, 128), (40, 4, 256)]]),
+    "sphere_synthetic.ini": (2, "float32", [
+        ("contract_stage", c, o, h) for c, o, h in [
+            (16, 16, 128), (32, 16, 128), (16, 32, 64), (32, 32, 64),
+            (32, 32, 32), (64, 32, 32)]] + [
+        ("expand_stage", c, o, h) for c, o, h in [
+            (128, 16, 16), (80, 8, 32), (40, 4, 64)]]),
+}
+
 # Small shapes with forced plans (th, tw, bn1, bn2): odd tile counts,
 # ragged last tiles, a single tile, odd and thin channel counts.
 EDGE_STAGES = [
@@ -429,78 +469,106 @@ SPLIT_EDGES = [
 ]
 
 
-def split_refusal_check():
+# Forced split contract plans (th, tw, s, ch) on small inputs (n, h, w,
+# c), o: every cluster size (16, the non-portable size, must launch on
+# the H100), 1x1 tiles, ragged last tiles (a y2 grid no multiple of the
+# tile), last tiles whose halo row and column leave the image (every
+# grid here), tiles no power of two, K = 4C below one chunk and not a
+# multiple of it, and every pixels-per-thread pair that occurs, (R1, R2)
+# = (1, 1), (2, 1), (2, 2), (4, 1), (4, 2).
+# O / S is a multiple of 8, so bfloat16 rows are whole 16-byte copies.
+CONTRACT_SPLIT_EDGES = [
+    ((2, 6, 10, 32), 8, (1, 1, 1, 32)),     # S = 1, 1x1 tiles, 3 x 5 grid
+    ((1, 10, 14, 64), 32, (2, 2, 2, 32)),   # S = 2, ragged 5 x 7 grid
+    ((1, 12, 12, 40), 32, (4, 4, 4, 64)),   # S = 4, 4C = 2.5 chunks
+    ((2, 14, 6, 56), 64, (2, 1, 8, 64)),    # S = 8, 4C = 3.5 chunks
+    ((1, 8, 8, 8), 16, (1, 2, 2, 64)),      # 4C below one chunk
+    ((1, 16, 16, 64), 64, (4, 4, 1, 32)),   # R1 = 2, R2 = 1, full tiles
+    ((1, 14, 18, 32), 64, (5, 7, 2, 32)),   # R1 = R2 = 2, 5 x 7 tiles
+    ((1, 18, 18, 64), 64, (8, 8, 2, 64)),   # R1 = 4, R2 = 2, ragged 9 x 9
+    ((1, 8, 36, 32), 64, (1, 16, 1, 32)),   # R1 = 4, R2 = 1, 1 x 16 tiles
+    ((1, 6, 6, 1024), 128, (1, 1, 8, 64)),  # 1x1 tiles, deep C
+    ((1, 8, 8, 64), 256, (2, 2, 16, 64)),   # S = 16
+]
+
+# Each op's split planner: its measured plans, 16-byte rule, cluster
+# sizes, candidate plans, shared-memory mirror and route.
+SPLIT_API = {
+    "contract_stage": types.SimpleNamespace(
+        tuned=fs._CONTRACT_SPLIT_TUNED, fits=fs._contract_split_fits,
+        sizes=fs._CONTRACT_SPLIT_S, candidates=fs._contract_split_candidates,
+        geometry=fs._contract_split_geometry, route=fs._contract_route),
+    "expand_stage": types.SimpleNamespace(
+        tuned=fs._SPLIT_TUNED, fits=fs._split_fits, sizes=fs._SPLIT_S,
+        candidates=fs._split_candidates, geometry=fs._split_geometry,
+        route=fs._expand_route)}
+
+
+def split_refusal_check(kind):
     """C = 33 with O = 16: no 16-byte copies fit, so the planner keeps
     the stage tiled and a forced split launch raises."""
+    api = SPLIT_API[kind]
+    shape = (1, 5, 3, 33) if kind == "expand_stage" else (1, 6, 10, 33)
     recs = []
     for dtype in (torch.float32, torch.bfloat16):
-        args = random_stage(1, 5, 3, 33, 16, dtype, 150)
+        args = random_stage(*shape, 16, dtype, 150)
         item = args[0].element_size()
-        fits = [fs._split_fits(33, 16, s, item) for s in fs._SPLIT_S]
+        fit = [api.fits(33, 16, s, item) for s in api.sizes]
         try:
-            fs._launch("expand_stage", *args, 0.3, True, split=(1, 1, 1, 32))
+            fs._launch(kind, *args, 0.3, True, split=(1, 1, 1, 32))
             raised = ""
         except RuntimeError as e:
             raised = str(e)
-        ok = not any(fits) and bool(raised) and fs._expand_route(
+        ok = not any(fit) and bool(raised) and api.route(
             args[0], args[1], args[3], 33, 16) is None
-        emit(check="split_refuses_c33", dtype=str(dtype)[6:], fits=fits,
-             raised=raised, ok=ok)
+        emit(check="split_refuses_c33", kernel=kind, dtype=str(dtype)[6:],
+             fits=fit, raised=raised, ok=ok)
         recs.append({"ok": ok})
-        recs.append(check_stage("expand_stage", args, label="edge_c33"))
+        recs.append(check_stage(kind, args, label="edge_c33"))
     return recs
 
 
-def kernel_phase():
+def split_flagship_checks(kind):
+    """The split kernel of `kind` at every flagship shape of that kind,
+    bs 1 and 4, both dtypes and slopes, at its measured plan, with its
+    per-phase clocks; both routes timed at both batch sizes."""
     recs = []
-    for i, (kind, shape, o, plan) in enumerate(EDGE_STAGES):
-        for dtype in (torch.float32, torch.bfloat16):
-            for slope in (0.3, 0.0):
-                args = random_stage(*shape, o, dtype, 100 + i)
-                recs.append(check_stage(kind, args, slope, plan=plan,
-                                        label="edge"))
-    for i, (shape, o, split) in enumerate(SPLIT_EDGES):
-        for dtype in (torch.float32, torch.bfloat16):
-            for slope in (0.3, 0.0):
-                args = random_stage(*shape, o, dtype, 120 + i)
-                recs.append(check_stage("expand_stage", args, slope,
-                                        split=split, label="split_edge"))
-    recs += split_refusal_check()
-    for i, (kind, c, o, h) in enumerate(FLAGSHIP_STAGES):
-        for dtype in (torch.bfloat16, torch.float32):
-            args = random_stage(1, h, h, c, o, dtype, i)
-            recs.append(check_stage(kind, args, timing=True,
-                                    label="flagship_bs1"))
-    # The split kernel at every flagship expand shape, bs 1 and 4, both
-    # dtypes and slopes, at its measured plan; both routes timed at both
-    # batch sizes.
-    for i, (kind, c, o, h) in enumerate(FLAGSHIP_STAGES):
-        if kind != "expand_stage":
+    tuned = SPLIT_API[kind].tuned
+    for i, (k, c, o, h) in enumerate(FLAGSHIP_STAGES):
+        if k != kind:
             continue
         for n in (1, 4):
             for dtype in (torch.float32, torch.bfloat16):
                 args = random_stage(n, h, h, c, o, dtype, 40 + i)
-                best = fs._SPLIT_TUNED.get(
-                    (n, h, h, c, o, args[0].element_size()))
+                best = tuned.get((n, h, h, c, o, args[0].element_size()))
                 if best is None:
-                    emit(check="split_not_routable", x=[n, h, h, c], o=o,
-                         dtype=str(dtype)[6:],
-                         note="O / S cannot be whole 16-byte copies")
+                    emit(check="split_not_routed", kernel=kind,
+                         x=[n, h, h, c], o=o, dtype=str(dtype)[6:],
+                         note="no split plan measured faster than the "
+                              "tiled kernel, or O / S cannot be whole "
+                              "16-byte copies")
                     continue
                 for slope in (0.3, 0.0):
                     recs.append(check_stage(kind, args, slope, split=best,
                                             timing=slope == 0.3,
                                             label="split_bs%d" % n))
                 # Where a launch's cycles go, per phase (not gated).
-                emit(phase="split_clocks", x=[n, h, h, c], o=o,
+                emit(phase="split_clocks", kernel=kind, x=[n, h, h, c], o=o,
                      dtype=str(dtype)[6:], plan=list(best),
-                     **split_clocks(args, best))
-                tiled = fs._plan(False, n, h, h, c, o, args[0].element_size())
-                recs.append(check_stage(kind, args, plan=tiled, timing=True,
-                                        time_refs=False,
+                     **split_clocks(kind, args, best))
+                recs.append(check_stage(kind, args,
+                                        plan=_tiled_plan(kind, args[0], o),
+                                        timing=True, time_refs=False,
                                         label="tiled_bs%d" % n))
-    # The libraries' shared-memory arithmetic matches the planner's.
-    lib, slib = fs._lib(), fs._split_lib()
+    return recs
+
+
+def smem_mirror_checks():
+    """The libraries' shared-memory and thread-item arithmetic matches
+    the planner's: the tiled plan of every flagship stage, and every
+    split candidate of every flagship and recipe stage (bs 1 and 4)."""
+    recs = []
+    lib = fs._lib()
     for kind, c, o, h in FLAGSHIP_STAGES:
         for item in (2, 4):
             plan = fs._plan(kind == "contract_stage", 1, h, h, c, o, item)
@@ -513,29 +581,75 @@ def kernel_phase():
                 recs.append({"ok": False})
                 emit(check="smem_mirror", kernel=kind, c=c, o=o,
                      got=got, want=want, ok=False)
-            if kind != "expand_stage":
-                continue
-            for n in (1, 4):
-                for th, tw, s, ch in fs._split_candidates(n, h, h, c, o,
-                                                          item):
-                    got = (slib.nlt_expand_split_smem_bytes(th, tw, o, s, ch,
-                                                            item),
-                           slib.nlt_expand_split_items(th, tw, o, s, ch,
-                                                       item, 1),
-                           slib.nlt_expand_split_items(th, tw, o, s, ch,
-                                                       item, 2))
-                    want = fs._split_geometry(th, tw, o, s, ch, item)
-                    if tuple(got) != tuple(want):
-                        recs.append({"ok": False})
-                        emit(check="split_smem_mirror", c=c, o=o,
-                             plan=[th, tw, s, ch], item=item, got=got,
-                             want=want, ok=False)
+    checked = 0
+    for kind, n, c, o, h in sweep_shapes():
+        api, slib = SPLIT_API[kind], fs._split_lib(kind)
+        for item in (2, 4):
+            for th, tw, s, ch in api.candidates(n, h, h, c, o, item):
+                got = (slib.smem_bytes(th, tw, o, s, ch, item),
+                       slib.items(th, tw, o, s, ch, item, 1),
+                       slib.items(th, tw, o, s, ch, item, 2))
+                want = api.geometry(th, tw, o, s, ch, item)
+                checked += 1
+                if tuple(got) != tuple(want):
+                    recs.append({"ok": False})
+                    emit(check="split_smem_mirror", kernel=kind, c=c, o=o,
+                         plan=[th, tw, s, ch], item=item, got=got,
+                         want=want, ok=False)
+    emit(check="split_smem_mirror", candidates=checked,
+         ok=all(r["ok"] for r in recs))
+    return recs
+
+
+def recipe_checks():
+    """Both stage kernels at every stage shape of the other recipes'
+    U-Nets (RECIPE_STAGES), on whatever route each takes: the recipe's
+    compute dtype timed beside cuDNN, the other dtype checked."""
+    recs = []
+    for recipe, (n, dname, stages) in RECIPE_STAGES.items():
+        main = getattr(torch, dname)
+        other = torch.float32 if main == torch.bfloat16 else torch.bfloat16
+        for i, (kind, c, o, h) in enumerate(stages):
+            for dtype in (main, other):
+                args = random_stage(n, h, h, c, o, dtype, 400 + i)
+                recs.append(check_stage(kind, args, timing=dtype is main,
+                                        label="recipe_" + recipe))
+                del args
+    return recs
+
+
+def kernel_phase():
+    recs = []
+    for i, (kind, shape, o, plan) in enumerate(EDGE_STAGES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for slope in (0.3, 0.0):
+                args = random_stage(*shape, o, dtype, 100 + i)
+                recs.append(check_stage(kind, args, slope, plan=plan,
+                                        label="edge"))
+    for kind, edges, seed in (("expand_stage", SPLIT_EDGES, 120),
+                              ("contract_stage", CONTRACT_SPLIT_EDGES, 160)):
+        for i, (shape, o, split) in enumerate(edges):
+            for dtype in (torch.float32, torch.bfloat16):
+                for slope in (0.3, 0.0):
+                    args = random_stage(*shape, o, dtype, seed + i)
+                    recs.append(check_stage(kind, args, slope, split=split,
+                                            label="split_edge"))
+        recs += split_refusal_check(kind)
+    for i, (kind, c, o, h) in enumerate(FLAGSHIP_STAGES):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = random_stage(1, h, h, c, o, dtype, i)
+            recs.append(check_stage(kind, args, timing=True,
+                                    label="flagship_bs1"))
+    recs += split_flagship_checks("expand_stage")
+    recs += split_flagship_checks("contract_stage")
+    recs += smem_mirror_checks()
+    recs += recipe_checks()
     return all(r["ok"] for r in recs)
 
 
-def split_clocks(args, split, slope=0.3):
-    """Per-phase clocks of one split launch (csrc/expand_split.cu's
-    nlt_expand_split_clocks: thread 0 of every block), averaged over
+def split_clocks(kind, args, split, slope=0.3):
+    """Per-phase clocks of one split launch (the library's clocks entry,
+    nlt_<kind>_split_clocks: thread 0 of every block), averaged over
     the blocks: cycles of the prologue, phase 1 (and of it the wait for
     chunks and the issue of chunk copies), the y1 epilogue and first
     cluster barrier, the exchange and second barrier, phase 2 (and its
@@ -545,17 +659,21 @@ def split_clocks(args, split, slope=0.3):
     n, h, w, c = x.shape
     o = w1.shape[3]
     th, tw, s, ch = split
-    blocks = n * s * -(-h // th) * -(-w // tw)
+    if kind == "contract_stage":
+        gh, gw, oh, ow = h // 2, w // 2, h // 2, w // 2
+    else:
+        gh, gw, oh, ow = h, w, 2 * h, 2 * w
+    blocks = n * s * -(-gh // th) * -(-gw // tw)
     clk = torch.zeros((blocks, 12), dtype=torch.int64, device=x.device)
-    y2 = torch.empty((n, 2 * h, 2 * w, o), dtype=x.dtype, device=x.device)
-    lib = fs._split_lib()
-    err = lib.nlt_expand_split_clocks(
+    y2 = torch.empty((n, oh, ow, o), dtype=x.dtype, device=x.device)
+    lib = fs._split_lib(kind)
+    err = lib.clocks(
         *[t.data_ptr() for t in args], y2.data_ptr(), None, n, h, w, c, o,
         *split, float(slope), int(x.dtype == torch.bfloat16),
         clk.data_ptr(), torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     if err != 0:
-        return {"error": lib.nlt_expand_split_error_string(err).decode()}
+        return {"error": lib.error_string(err).decode()}
     k = clk.double().cpu()
     cyc = k[:, 6] - k[:, 1]
     parts = {"prologue": k[:, 2] - k[:, 1], "phase1": k[:, 3] - k[:, 2],
@@ -572,64 +690,81 @@ def split_clocks(args, split, slope=0.3):
             "kernel_span_ns": float(k[:, 9].max() - k[:, 0].min())}
 
 
+def sweep_shapes():
+    """(kind, n, C, O, input H = W) of every flagship stage at bs 1 and 4
+    and every recipe stage at its recipe's batch size, each once."""
+    out = [(kind, n, c, o, h) for kind, c, o, h in FLAGSHIP_STAGES
+           for n in (1, 4)]
+    out += [(kind, n, c, o, h) for n, _, stages in RECIPE_STAGES.values()
+            for kind, c, o, h in stages]
+    return list(dict.fromkeys(out))
+
+
 def split_sweep(out_dir):
-    """Every split plan at every flagship expand shape (bs 1 and 4,
-    float32 and bfloat16): checked against the plain version and the
-    tiled kernel, and timed; the tiled route timed beside it."""
+    """Every split plan of both ops at every flagship shape (bs 1 and 4)
+    and every recipe shape, float32 and bfloat16: checked against the
+    plain version and the tiled kernel, and timed; the tiled route timed
+    beside it. A launch the card refuses is recorded as such."""
     os.makedirs(out_dir, exist_ok=True)
     ok = True
     with open(os.path.join(out_dir, "split_sweep.jsonl"), "w") as fh:
-        for i, (kind, c, o, h) in enumerate(FLAGSHIP_STAGES):
-            if kind != "expand_stage":
-                continue
-            for n in (1, 4):
-                for dtype in (torch.float32, torch.bfloat16):
-                    args = random_stage(n, h, h, c, o, dtype, 60 + i)
-                    item = args[0].element_size()
-                    with torch.no_grad():
-                        y2p, y1p = fs.expand_stage_ref(*args, 0.3)
-                        tiled = fs._plan(False, n, h, h, c, o, item)
-                        y2t, y1t = fs._launch(kind, *args, 0.3, True,
-                                              plan=tiled)
-                        t_ms = time_ms(lambda: fs._launch(
-                            kind, *args, 0.3, False, plan=tiled), 10, 3)
-                        scale = max(1.0, float(y2p.float().abs().max()))
-                        rows = []
-                        for sp in fs._split_candidates(n, h, h, c, o, item):
+        for i, (kind, n, c, o, h) in enumerate(sweep_shapes()):
+            ref = fs.contract_stage_ref if kind == "contract_stage" \
+                else fs.expand_stage_ref
+            for dtype in (torch.float32, torch.bfloat16):
+                item = 4 if dtype == torch.float32 else 2
+                plans = SPLIT_API[kind].candidates(n, h, h, c, o, item)
+                if not plans:
+                    continue
+                args = random_stage(n, h, h, c, o, dtype, 60 + i)
+                with torch.no_grad():
+                    y2p, y1p = ref(*args, 0.3)
+                    tiled = _tiled_plan(kind, args[0], o)
+                    y2t, y1t = fs._launch(kind, *args, 0.3, True, plan=tiled)
+                    t_ms = time_ms(lambda: fs._launch(
+                        kind, *args, 0.3, False, plan=tiled), 10, 3)
+                    scale = max(1.0, float(y2p.float().abs().max()))
+                    rows = []
+                    for sp in plans:
+                        r = {"kernel": kind, "x": [n, h, h, c], "o": o,
+                             "dtype": str(dtype)[6:], "plan": list(sp)}
+                        try:
                             y2k, y1k = fs._launch(kind, *args, 0.3, True,
                                                   split=sp)
                             torch.cuda.synchronize()
-                            err = max(float((y2k.float() - y2p.float())
-                                            .abs().max()),
-                                      float((y1k.float() - y1p.float())
-                                            .abs().max()))
-                            r = {"x": [n, h, h, c], "o": o,
-                                 "dtype": str(dtype)[6:], "plan": list(sp),
-                                 "ms": time_ms(lambda: fs._launch(
-                                     kind, *args, 0.3, False, split=sp),
-                                     10, 3),
-                                 "equal_to_tiled": bool(
-                                     torch.equal(y2k, y2t)
-                                     and torch.equal(y1k, y1t)),
-                                 "max_abs_err": err,
-                                 "ok": err <= KERNEL_TOL[dtype] * scale}
-                            ok &= r["ok"]
-                            rows.append(r)
+                        except RuntimeError as e:
+                            r.update(refused=str(e), ok=True)
                             fh.write(json.dumps(r) + "\n")
-                    if not rows:
-                        continue
-                    best = min(rows, key=lambda r: r["ms"])
-                    tuned = fs._SPLIT_TUNED.get((n, h, h, c, o, item))
-                    emit(phase="split_sweep", x=[n, h, h, c], o=o,
-                         dtype=str(dtype)[6:], plans=len(rows),
-                         tiled_plan=list(tiled), tiled_ms=t_ms,
-                         best_plan=best["plan"], best_ms=best["ms"],
-                         tuned_plan=tuned and list(tuned),
-                         tuned_ms=next((r["ms"] for r in rows
-                                        if tuple(r["plan"]) == tuned), None),
-                         all_equal_to_tiled=all(r["equal_to_tiled"]
-                                                for r in rows),
-                         ok=all(r["ok"] for r in rows))
+                            continue
+                        err = max(float((y2k.float() - y2p.float())
+                                        .abs().max()),
+                                  float((y1k.float() - y1p.float())
+                                        .abs().max()))
+                        r.update(ms=time_ms(lambda: fs._launch(
+                            kind, *args, 0.3, False, split=sp), 10, 3),
+                            equal_to_tiled=bool(torch.equal(y2k, y2t)
+                                                and torch.equal(y1k, y1t)),
+                            max_abs_err=err,
+                            ok=err <= KERNEL_TOL[dtype] * scale)
+                        ok &= r["ok"]
+                        rows.append(r)
+                        fh.write(json.dumps(r) + "\n")
+                del args, y2p, y1p, y2t, y1t
+                if not rows:
+                    continue
+                best = min(rows, key=lambda r: r["ms"])
+                tuned = SPLIT_API[kind].tuned.get((n, h, h, c, o, item))
+                emit(phase="split_sweep", kernel=kind, x=[n, h, h, c], o=o,
+                     dtype=str(dtype)[6:], plans=len(plans),
+                     launched=len(rows), tiled_plan=list(tiled),
+                     tiled_ms=t_ms, best_plan=best["plan"],
+                     best_ms=best["ms"], split_wins=best["ms"] < t_ms,
+                     tuned_plan=tuned and list(tuned),
+                     tuned_ms=next((r["ms"] for r in rows
+                                    if tuple(r["plan"]) == tuned), None),
+                     all_equal_to_tiled=all(r["equal_to_tiled"]
+                                            for r in rows),
+                     ok=all(r["ok"] for r in rows))
     return ok
 
 
@@ -661,7 +796,7 @@ def capture_stage_inputs(server, req):
 
 
 def _category(name):
-    if "contract_kernel" in name:
+    if "contract_kernel" in name or "contract_split_kernel" in name:
         return "contract_stage kernel"
     if "expand_kernel" in name or "expand_split_kernel" in name:
         return "expand_stage kernel"
@@ -916,6 +1051,7 @@ def profile_train_step(step, state, batch, statics):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     named = {"contract_kernel": "fused forward (K2)",
+             "contract_split_kernel": "fused forward (K2)",
              "expand_kernel": "fused forward (K3)",
              "expand_split_kernel": "fused forward (K3)",
              "scatter_add_rows_kernel": "resample backward scatter (K1)"}
@@ -1444,8 +1580,9 @@ def trainvali_phase(work, card):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--expand-route", choices=("auto", "tiled"),
-                    default="auto")
+    for kind in ("expand", "contract"):
+        ap.add_argument("--%s-route" % kind, choices=("auto", "tiled"),
+                        default="auto")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "chiprun_out"))
@@ -1454,7 +1591,8 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 2
-    set_expand_route(args.expand_route)
+    set_route("expand_stage", args.expand_route)
+    set_route("contract_stage", args.contract_route)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.environ["NLT_TPU_FUSED_STAGE"] = "1"
@@ -1474,7 +1612,8 @@ def main(argv=None):
                      if f.endswith(".cu"))
     _build.build(sources)
     fs._lib()
-    fs._split_lib()
+    for kind in fs._SPLIT_SOURCES:
+        fs._split_lib(kind)
     ptxas = [ln.strip() for name in sources
              for ln in _build.BUILD_LOGS.get(name, "").splitlines()
              if "registers" in ln or "spill" in ln]
@@ -1558,23 +1697,27 @@ def main(argv=None):
                           "bfloat16_no_pyramid")
 
     # 5. Serving latency and throughput, and where a request's time goes;
-    # the expand stages on the tiled route against this run's routes, in
-    # turns (tiled, run, run, tiled).
-    route = _EXPAND_ROUTE
-    for r in ("tiled", route, route, "tiled"):
-        set_expand_route(r)
-        profile_requests(server, reqs1[0], label="expand_route_" + r)
-        profile_requests(server, req4, label="expand_route_" + r)
-        profile_requests(nopyr, reqs1[0], label="no_pyramid_expand_route_"
-                         + r)
-        for name, srv in (("kernels", server),
-                          ("kernels_no_pyramid", nopyr)):
-            for req in (reqs1[0], req4):
-                stats = srv.benchmark(req, n=20)
-                emit(phase="serving_benchmark", path=name, expand_route=r,
-                     bs=int(req["base"].shape[0]), pack="uint8",
-                     latency_ms=stats["latency_s"] * 1e3, fps=stats["fps"])
-    set_expand_route(route)
+    # the stages of each op on the tiled route against this run's routes,
+    # in turns (tiled, run, run, tiled), the other op on its run route.
+    for kind, tag in (("expand_stage", "expand"),
+                      ("contract_stage", "contract")):
+        route = ROUTES[kind]
+        for r in ("tiled", route, route, "tiled"):
+            set_route(kind, r)
+            label = "%s_route_%s" % (tag, r)
+            profile_requests(server, reqs1[0], label=label)
+            profile_requests(server, req4, label=label)
+            profile_requests(nopyr, reqs1[0], label="no_pyramid_" + label)
+            for name, srv in (("kernels", server),
+                              ("kernels_no_pyramid", nopyr)):
+                for req in (reqs1[0], req4):
+                    stats = srv.benchmark(req, n=20)
+                    emit(phase="serving_benchmark", path=name,
+                         **{tag + "_route": r},
+                         bs=int(req["base"].shape[0]), pack="uint8",
+                         latency_ms=stats["latency_s"] * 1e3,
+                         fps=stats["fps"])
+        set_route(kind, route)
     for name, srv in (("plain", plain), ("plain_no_pyramid", nopyr_plain)):
         for req in (reqs1[0], req4):
             stats = srv.benchmark(req, n=20)

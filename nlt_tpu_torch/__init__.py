@@ -15,7 +15,8 @@ Ported so far: the serving path (``serve.Server`` over
 (``parallel/train.py``: barron + LPIPS, AMSGrad, cached statics), with
 the fused U-Net stage kernels of ``ops/fused_stage.py`` and the
 resampler-backward scatter of ``ops/scatter.py`` written in CUDA C++
-(``csrc/fused_stage.cu``, ``csrc/scatter.cu``).
+(``csrc/fused_stage.cu`` and the split routes ``csrc/contract_split.cu``
+and ``csrc/expand_split.cu``; ``csrc/scatter.cu``).
 """
 
 import torch

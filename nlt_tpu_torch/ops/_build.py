@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``_build/lib<name>-<hash>.so`` (a plain C interface, loaded with
-ctypes), at first use. The hash covers the source and the flags, so an
-edited source builds anew and an unchanged one is reused. ``build``
+ctypes), at first use. The hash covers the source, every header under
+``csrc/`` (``*.cuh``, ``*.h``) and the flags, so an edited source or
+header builds anew and an unchanged one is reused. ``build``
 starts one ``nvcc`` per source, all at once, and waits for them all.
 """
 
@@ -39,11 +40,18 @@ def _nvcc():
 
 
 def _target(name):
+    """(source, library path): the name carries a hash of the source, the
+    headers of csrc/ (which any source may include) and the flags."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest))
+    headers = sorted(f for f in os.listdir(CSRC)
+                     if f.endswith((".cuh", ".h")))
+    digest = hashlib.sha256()
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, "lib%s-%s.so" % (
+        name, digest.hexdigest()[:16]))
 
 
 def build(names):

@@ -2,36 +2,46 @@
 mirrored expanding (deconv k2s2 -> lrelu -> deconv k2s1 -> lrelu), each
 as one CUDA kernel launch (port of nlt_tpu/ops/fused_stage.py).
 
-Kernels (built for sm_90a at first use):
+Kernels (built for sm_90a at first use). Each op has two routes:
 
-- ``contract_stage`` replaces the Pallas kernel ``_contract_kernel``
-  (nlt_tpu/ops/fused_stage.py, launched by ``_contract_fwd_pallas``):
-  ``contract_kernel`` of csrc/fused_stage.cu.
-- ``expand_stage`` replaces ``_expand_kernel`` and its lane-packed twin
-  ``_expand_kernel_packed`` (both launched by ``_expand_fwd_pallas``).
-  The packing, the row blocks and the halo BlockSpecs are TPU layout
-  devices; two routes cover every channel count here:
-  - the split route, ``expand_split_kernel`` of csrc/expand_split.cu:
-    a thread-block cluster of S blocks per tile, each block one slice
-    of the output channels, y1 shared through distributed shared
-    memory, inputs and weights streamed by cp.async. Made for the deep
-    stages whose one-block-per-tile grid leaves the card idle, it was
-    faster on the H100 at every flagship expand stage it can take, at
-    bs 1 and 4; ``_split_plan`` routes exactly those stages, at the
-    plans measured there (S > 1 on the deep 8^2 to 32^2 stages, S = 1
-    from 64^2 on);
-  - the tiled route, ``expand_kernel`` of csrc/fused_stage.cu, for the
-    rest (``_plan``): the bf16 stage with O = 4, whose O / S slice is
-    no whole 16-byte copy, and every shape of another recipe or batch
-    size, where no plan was measured.
-  A call whose pointers are off a 16-byte boundary stays tiled.
+- a split route, a thread-block cluster of S blocks per tile, each
+  block one slice of the output channels, y1 shared through
+  distributed shared memory, inputs and weights streamed by cp.async.
+  It is made for the deep stages whose one-block-per-tile grid leaves
+  the card idle;
+- a tiled route, one block per tile (csrc/fused_stage.cu, planned by
+  ``_plan``), for every other shape.
+
+``contract_stage`` replaces the Pallas kernel ``_contract_kernel``
+(nlt_tpu/ops/fused_stage.py, launched by ``_contract_fwd_pallas``):
+``contract_split_kernel`` of csrc/contract_split.cu on the split route,
+``contract_kernel`` of csrc/fused_stage.cu on the tiled one.
+``_contract_split_plan`` routes exactly the shapes of
+``_CONTRACT_SPLIT_TUNED``, at the plans where ``python3 chip_smoke.py
+--sweep`` measured the split kernel faster than the tiled one on the
+H100.
+
+``expand_stage`` replaces ``_expand_kernel`` and its lane-packed twin
+``_expand_kernel_packed`` (both launched by ``_expand_fwd_pallas``).
+The packing, the row blocks and the halo BlockSpecs are TPU layout
+devices; ``expand_split_kernel`` of csrc/expand_split.cu and
+``expand_kernel`` of csrc/fused_stage.cu cover every channel count.
+The split kernel was faster on the H100 at every flagship expand stage
+it can take, at bs 1 and 4; ``_split_plan`` routes exactly those
+stages, at the plans measured there (``_SPLIT_TUNED``: S > 1 on the
+deep 8^2 to 32^2 stages, S = 1 from 64^2 on). The tiled kernel keeps
+the bf16 stage with O = 4, whose O / S slice is no whole 16-byte copy,
+and every shape of another recipe or batch size.
+
+A call whose pointers are off a 16-byte boundary stays tiled. A split
+launch the card refuses raises; there is no fallback.
 
 What bounds them on the H100: per output pixel a stage reads 4C inputs
 and does 4CO + 4OO multiply-adds, about O + O^2/C FLOP per byte in
 bf16. The thin high-resolution stages of the flagship U-Net sit below
 the card's ~295 FLOP/byte ridge (bound by bytes), the 256-channel ones
-above it (bound by operations); the deep expand stages do so little work
-that latency bounds them. The design keeps the intermediate y1 in
+above it (bound by operations); the deep stages do so little work that
+latency bounds them. The design keeps the intermediate y1 in
 shared memory (the one thing the fusion is for: y1 never goes to
 device memory unless asked) and streams the input channels in chunks,
 so no stage's width is limited by shared memory. Products run on the
@@ -54,12 +64,13 @@ Numerics follow the Pallas kernels: float32 accumulation, the bias
 added in float32, y1 and y2 rounded to the activation dtype once each
 after the activation. The plain versions follow nlt_tpu's references,
 which under bfloat16 round every tap's product before the sum; the two
-agree exactly in float32 up to summation order. Both expand routes sum
-in one order, so they agree bit for bit.
+agree exactly in float32 up to summation order. The two routes of
+each op sum in one order, so they agree bit for bit.
 """
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -83,6 +94,10 @@ _SPLIT_RS = (1, 2, 4)      # pixels per thread item
 _SPLIT_S = (1, 2, 4, 8)    # blocks per cluster (the portable limit)
 _SPLIT_CHUNKS = (32, 64)   # input channels per chunk
 _SPLIT_TILES = (1, 2, 4, 8)
+# The split contract kernel (csrc/contract_split.cu) shares the ring,
+# thread items, tiles and chunks; it may also run 16-block clusters (the
+# non-portable size), where the card accepts the launch.
+_CONTRACT_SPLIT_S = (1, 2, 4, 8, 16)
 
 
 def reset_launches():
@@ -223,20 +238,27 @@ def _split_fits(c, o, s, itemsize):
             and (o // s) % 4 == 0 and c % ve == 0)
 
 
-def _split_candidates(n, h, w, c, o, itemsize):
-    """Every split launch (th, tw, s, ch) the kernel takes for a stage."""
+def _candidates(gh, gw, c, o, itemsize, sizes, fits, geometry):
+    """Every split launch (th, tw, s, ch) over a gh x gw tile grid whose
+    16-byte copies fit (`fits`) and whose shared memory and thread items
+    fit a block (`geometry`)."""
     out = []
-    for th in [t for t in _SPLIT_TILES if t < 2 * h]:
-        for tw in [t for t in _SPLIT_TILES if t < 2 * w]:
-            for s in _SPLIT_S:
-                if not _split_fits(c, o, s, itemsize):
+    for th in [t for t in _SPLIT_TILES if t < 2 * gh]:
+        for tw in [t for t in _SPLIT_TILES if t < 2 * gw]:
+            for s in sizes:
+                if not fits(c, o, s, itemsize):
                     continue
                 for ch in _SPLIT_CHUNKS:
-                    smem, r1, r2 = _split_geometry(th, tw, o, s, ch,
-                                                   itemsize)
+                    smem, r1, r2 = geometry(th, tw, o, s, ch, itemsize)
                     if smem <= _SMEM_MAX and r1 and r2:
                         out.append((th, tw, s, ch))
     return out
+
+
+def _split_candidates(n, h, w, c, o, itemsize):
+    """Every split launch (th, tw, s, ch) the kernel takes for a stage."""
+    return _candidates(h, w, c, o, itemsize, _SPLIT_S, _split_fits,
+                       _split_geometry)
 
 
 # The split route's plans, keyed (n, h, w, c, o, itemsize): the flagship
@@ -280,37 +302,173 @@ def _split_plan(n, h, w, c, o, itemsize):
     return _SPLIT_TUNED.get((n, h, w, c, o, itemsize))
 
 
+def _contract_split_geometry(th, tw, o, s, ch, itemsize):
+    """(shared-memory bytes, R1, R2) of a split contract launch; mirrors
+    csrc/contract_split.cu's Geo and pick_r (R = 0: the product does not
+    fit the block's threads)."""
+    os_, ve = o // s, 16 // itemsize
+    m1 = (th + 1) * (tw + 1)
+    stage = (m1 * (ch + ve) + ch * os_) * itemsize
+    smem = (_SPLIT_STAGES * stage + _ceil_to(m1 * (o + ve) * itemsize, 16)
+            + _ceil_to(m1 * 4, 16))
+    r1 = next((r for r in _SPLIT_RS
+               if -(-m1 // r) * (os_ // 4) <= _SPLIT_THREADS), 0)
+    r2 = next((r for r in _SPLIT_RS
+               if -(-th * tw // r) * (os_ // 4) <= _SPLIT_THREADS), 0)
+    return smem, r1, r2
+
+
+def _contract_split_fits(c, o, s, itemsize):
+    """The split contract kernel's 16-byte copies can take C and the O/S
+    slice, and a weight row is at most one copy per thread."""
+    ve = 16 // itemsize
+    return (s in _CONTRACT_SPLIT_S and o % s == 0 and (o // s) % ve == 0
+            and (o // s) % 4 == 0 and (o // s) // ve <= _SPLIT_THREADS
+            and c % ve == 0)
+
+
+def _contract_split_candidates(n, h, w, c, o, itemsize):
+    """Every split contract launch (th, tw, s, ch) the kernel takes for a
+    stage with input (n, h, w, c): tiles of the (h/2) x (w/2) y2 grid."""
+    return _candidates(h // 2, w // 2, c, o, itemsize, _CONTRACT_SPLIT_S,
+                       _contract_split_fits, _contract_split_geometry)
+
+
+# The split contract route's plans, keyed (n, h, w, c, o, itemsize) of
+# the input: the shapes where `python3 chip_smoke.py --sweep` on an H100
+# SXM (700 W) timed every candidate beside the tiled kernel and the
+# fastest split plan beat it, each at that plan. It beat it at all 72
+# keys swept (36 shapes: the flagship contract stages at bs 1 and 4, and
+# the stages of dragon_sss.ini at bs 4 and sphere_synthetic.ini at bs 2;
+# in both dtypes): 1.1-2.1x at 512^2 bs 4, 2.7-6.6x on the flagship
+# 16^2 and 32^2 stages, 18-34x on dragon_sss's 1024-channel 8^2 and 4^2
+# stages, which run clusters of 16 (as do most 16^2 stages). A shape of
+# another recipe or batch size joins once a sweep has timed it.
+_CONTRACT_SPLIT_TUNED = {
+    # flagship stages, bs 1
+    (1, 512, 512, 16, 16, 2): (8, 8, 1, 64),
+    (1, 512, 512, 16, 16, 4): (8, 8, 1, 64),
+    (1, 512, 512, 32, 16, 2): (8, 8, 1, 64),
+    (1, 512, 512, 32, 16, 4): (8, 8, 1, 64),
+    (1, 256, 256, 16, 32, 2): (8, 8, 1, 64),
+    (1, 256, 256, 16, 32, 4): (8, 8, 1, 32),
+    (1, 256, 256, 32, 32, 2): (8, 8, 1, 64),
+    (1, 256, 256, 32, 32, 4): (8, 8, 1, 32),
+    (1, 128, 128, 32, 64, 2): (4, 8, 1, 64),
+    (1, 128, 128, 32, 64, 4): (8, 4, 1, 64),
+    (1, 128, 128, 64, 64, 2): (8, 4, 1, 64),
+    (1, 128, 128, 64, 64, 4): (4, 8, 1, 64),
+    (1, 64, 64, 64, 128, 2): (8, 2, 2, 64),
+    (1, 64, 64, 64, 128, 4): (4, 4, 2, 64),
+    (1, 64, 64, 128, 128, 2): (8, 2, 2, 64),
+    (1, 64, 64, 128, 128, 4): (4, 4, 2, 64),
+    (1, 32, 32, 128, 256, 2): (2, 2, 2, 64),
+    (1, 32, 32, 128, 256, 4): (1, 4, 2, 64),
+    (1, 32, 32, 256, 256, 2): (2, 2, 2, 64),
+    (1, 32, 32, 256, 256, 4): (4, 1, 2, 64),
+    (1, 16, 16, 256, 256, 2): (2, 8, 16, 64),
+    (1, 16, 16, 256, 256, 4): (8, 2, 16, 64),
+    (1, 16, 16, 512, 256, 2): (2, 8, 16, 64),
+    (1, 16, 16, 512, 256, 4): (8, 2, 16, 64),
+    # flagship stages and dragon_sss.ini's, bs 4
+    (4, 512, 512, 16, 16, 2): (8, 8, 1, 64),
+    (4, 512, 512, 16, 16, 4): (8, 8, 1, 64),
+    (4, 512, 512, 32, 16, 2): (8, 8, 1, 64),
+    (4, 512, 512, 32, 16, 4): (8, 8, 1, 64),
+    (4, 256, 256, 16, 32, 2): (8, 8, 1, 64),
+    (4, 256, 256, 16, 32, 4): (8, 8, 1, 64),
+    (4, 256, 256, 32, 32, 2): (8, 8, 1, 64),
+    (4, 256, 256, 32, 32, 4): (8, 8, 1, 64),
+    (4, 128, 128, 32, 64, 2): (4, 8, 1, 64),
+    (4, 128, 128, 32, 64, 4): (8, 8, 2, 64),
+    (4, 128, 128, 64, 64, 2): (8, 4, 1, 64),
+    (4, 128, 128, 64, 64, 4): (8, 8, 2, 64),
+    (4, 64, 64, 64, 128, 2): (8, 4, 2, 64),
+    (4, 64, 64, 64, 128, 4): (4, 8, 2, 64),
+    (4, 64, 64, 128, 128, 2): (4, 8, 2, 64),
+    (4, 64, 64, 128, 128, 4): (8, 4, 2, 64),
+    (4, 32, 32, 128, 256, 2): (4, 4, 2, 64),
+    (4, 32, 32, 128, 256, 4): (4, 4, 2, 64),
+    (4, 32, 32, 256, 256, 2): (4, 4, 2, 64),
+    (4, 32, 32, 256, 256, 4): (4, 4, 2, 64),
+    (4, 16, 16, 256, 256, 2): (8, 8, 16, 64),
+    (4, 16, 16, 256, 256, 4): (2, 8, 8, 64),
+    (4, 16, 16, 256, 512, 2): (8, 8, 16, 64),
+    (4, 16, 16, 256, 512, 4): (4, 8, 8, 64),
+    (4, 16, 16, 512, 256, 2): (8, 8, 16, 64),
+    (4, 16, 16, 512, 256, 4): (8, 8, 16, 64),
+    (4, 16, 16, 512, 512, 2): (8, 8, 16, 64),
+    (4, 16, 16, 512, 512, 4): (8, 8, 16, 32),
+    (4, 8, 8, 512, 1024, 2): (4, 4, 16, 64),
+    (4, 8, 8, 512, 1024, 4): (4, 4, 16, 64),
+    (4, 8, 8, 1024, 1024, 2): (4, 4, 16, 64),
+    (4, 8, 8, 1024, 1024, 4): (4, 4, 16, 64),
+    (4, 4, 4, 1024, 1024, 2): (2, 2, 16, 64),
+    (4, 4, 4, 1024, 1024, 4): (2, 2, 16, 64),
+    (4, 4, 4, 2048, 1024, 2): (2, 2, 16, 64),
+    (4, 4, 4, 2048, 1024, 4): (2, 2, 16, 64),
+    # sphere_synthetic.ini's stages, bs 2
+    (2, 128, 128, 16, 16, 2): (8, 8, 1, 64),
+    (2, 128, 128, 16, 16, 4): (8, 8, 1, 64),
+    (2, 128, 128, 32, 16, 2): (8, 8, 1, 64),
+    (2, 128, 128, 32, 16, 4): (8, 8, 1, 64),
+    (2, 64, 64, 16, 32, 2): (4, 4, 1, 64),
+    (2, 64, 64, 16, 32, 4): (4, 4, 1, 32),
+    (2, 64, 64, 32, 32, 2): (2, 8, 1, 32),
+    (2, 64, 64, 32, 32, 4): (8, 4, 2, 64),
+    (2, 32, 32, 32, 32, 2): (4, 2, 1, 64),
+    (2, 32, 32, 32, 32, 4): (2, 4, 1, 64),
+    (2, 32, 32, 64, 32, 2): (4, 2, 1, 64),
+    (2, 32, 32, 64, 32, 4): (4, 1, 1, 64),
+}
+
+
+def _contract_split_plan(n, h, w, c, o, itemsize):
+    """(th, tw, s, chunk) of the split contract route, or None to stay on
+    the tiled kernel: the measured plan of _CONTRACT_SPLIT_TUNED."""
+    return _CONTRACT_SPLIT_TUNED.get((n, h, w, c, o, itemsize))
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
 
 _LIB = None
-_SPLIT_LIB = None
+# The split kernels' libraries (csrc/<source>.cu), by op.
+_SPLIT_SOURCES = {"contract_stage": "contract_split",
+                  "expand_stage": "expand_split"}
+_SPLIT_LIBS = {}
 
 
-def _split_lib():
-    """The split expand kernel's library, built and typed at first use."""
-    global _SPLIT_LIB
-    if _SPLIT_LIB is None:
+def _split_lib(kind):
+    """The split kernel of `kind` ("contract_stage" / "expand_stage"),
+    built and typed at first use: its C functions
+    nlt_<source>{,_clocks,_smem_bytes,_items,_error_string} as launch,
+    clocks, smem_bytes, items and error_string."""
+    lib = _SPLIT_LIBS.get(kind)
+    if lib is None:
         from . import _build
 
-        lib = _build.load("expand_split")
+        name = _SPLIT_SOURCES[kind]
+        so = _build.load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nlt_expand_split.argtypes = ([p] * 7 + [i] * 9
-                                         + [ctypes.c_float, i, p])
-        lib.nlt_expand_split.restype = i
-        lib.nlt_expand_split_clocks.argtypes = ([p] * 7 + [i] * 9
-                                                + [ctypes.c_float, i, p, p])
-        lib.nlt_expand_split_clocks.restype = i
-        lib.nlt_expand_split_smem_bytes.argtypes = [i] * 6
-        lib.nlt_expand_split_smem_bytes.restype = ctypes.c_longlong
-        lib.nlt_expand_split_items.argtypes = [i] * 7
-        lib.nlt_expand_split_items.restype = i
-        lib.nlt_expand_split_error_string.argtypes = [i]
-        lib.nlt_expand_split_error_string.restype = ctypes.c_char_p
-        _SPLIT_LIB = lib
-    return _SPLIT_LIB
+        fns = {sfx: getattr(so, "nlt_" + name + sfx) for sfx in (
+            "", "_clocks", "_smem_bytes", "_items", "_error_string")}
+        fns[""].argtypes = [p] * 7 + [i] * 9 + [ctypes.c_float, i, p]
+        fns["_clocks"].argtypes = [p] * 7 + [i] * 9 + [ctypes.c_float, i,
+                                                       p, p]
+        fns["_smem_bytes"].argtypes = [i] * 6
+        fns["_smem_bytes"].restype = ctypes.c_longlong
+        fns["_items"].argtypes = [i] * 7
+        fns["_error_string"].argtypes = [i]
+        fns["_error_string"].restype = ctypes.c_char_p
+        lib = types.SimpleNamespace(
+            launch=fns[""], clocks=fns["_clocks"],
+            smem_bytes=fns["_smem_bytes"], items=fns["_items"],
+            error_string=fns["_error_string"])
+        _SPLIT_LIBS[kind] = lib
+    return lib
 
 
 def _lib():
@@ -376,19 +534,28 @@ def _expand_route(x, w1, w2, c, o):
     return _split_plan(*x.shape[:3], c, o, x.element_size())
 
 
+def _contract_route(x, w1, w2, c, o):
+    """The split plan a contract call takes (_contract_split_plan, if the
+    pointers allow 16-byte copies), or None for the tiled kernel."""
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        return None
+    return _contract_split_plan(*x.shape[:3], c, o, x.element_size())
+
+
 def _launch(kind, x, w1, b1, w2, b2, slope, return_y1, plan=None,
             split=None):
     """Launch the kernel on checked CUDA tensors. `plan` (th, tw, bn1,
     bn2) forces the tiled kernel and its tiling, `split` (th, tw, s, ch)
-    the split expand kernel and its plan; neither: the op's route."""
+    the op's split kernel and its plan; neither: the op's route."""
     contract = kind == "contract_stage"
     n, h, w, c = x.shape
     o = w1.shape[3]
     oh, ow = (h // 2, w // 2) if contract else (2 * h, 2 * w)
     y2 = torch.empty((n, oh, ow, o), dtype=x.dtype, device=x.device)
     y1 = torch.empty_like(y2) if return_y1 else None
-    if not contract and plan is None and split is None:
-        split = _expand_route(x, w1, w2, c, o)
+    if plan is None and split is None:
+        route = _contract_route if contract else _expand_route
+        split = route(x, w1, w2, c, o)
     is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -396,11 +563,12 @@ def _launch(kind, x, w1, b1, w2, b2, slope, return_y1, plan=None,
                 b2.data_ptr(), y2.data_ptr(),
                 y1.data_ptr() if y1 is not None else None)
         if split is not None:
-            lib = _split_lib()
-            err = lib.nlt_expand_split(*ptrs, n, h, w, c, o, *split,
-                                       float(slope), is_bf16, stream)
-            what = "expand_split plan th=%d tw=%d s=%d ch=%d" % split
-            msg = lib.nlt_expand_split_error_string
+            lib = _split_lib(kind)
+            err = lib.launch(*ptrs, n, h, w, c, o, *split, float(slope),
+                             is_bf16, stream)
+            what = "%s plan th=%d tw=%d s=%d ch=%d" % (
+                (_SPLIT_SOURCES[kind],) + tuple(split))
+            msg = lib.error_string
         else:
             th, tw, bn1, bn2 = plan or _plan(contract, n, h, w, c, o,
                                              x.element_size())

@@ -4,6 +4,9 @@ Pallas kernels in interpret mode, plain and lane-packed, and against
 the JAX references; plus the CUDA launch plan, which is plain Python.
 Inputs come from a numpy seed and go to both packages."""
 
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +15,8 @@ import torch
 
 from nlt_tpu.ops import fused_stage as jfs
 from nlt_tpu_torch.ops import fused_stage as tfs
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _args(rng, shape, o):
@@ -347,3 +352,306 @@ def test_stage_under_grad_refuses_return_y1():
         tfs.contract_stage(x, torch.zeros(2, 2, 2, 3), torch.zeros(3),
                            torch.zeros(2, 2, 3, 3), torch.zeros(3),
                            return_y1=True)
+
+
+# ---------------------------------------------------------------------------
+# The split contract route (csrc/contract_split.cu): its planner, which is
+# plain Python, and its index arithmetic, emulated on the CPU.
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its stage lists; nothing runs)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _measured_contract_keys():
+    """Every contract shape chip_smoke.py --sweep times: the flagship
+    stages at bs 1 and 4 and the recipe stages at their batch size, in
+    both dtypes."""
+    keys = {(n, h, h, c, o, item) for contract, c, o, h in FLAGSHIP_STAGES
+            if contract for n in (1, 4) for item in (2, 4)}
+    for n, _, stages in _chip_smoke().RECIPE_STAGES.values():
+        keys |= {(n, h, h, c, o, item) for kind, c, o, h in stages
+                 if kind == "contract_stage" for item in (2, 4)}
+    return keys
+
+
+def test_contract_split_geometry_by_hand():
+    """Two launches' shared memory and thread items, computed by hand
+    from csrc/contract_split.cu's layout: 3 ring stages of (the y1 tile's
+    (TH+1)(TW+1) pixels x (CH + one 16-byte pad) + CH weight rows x O/S)
+    elements, the y1 tile at O + pad channels, one int per pixel."""
+    # 2 x 4 tile, O = 256, S = 8, CH = 64, float32: 15 pixels; 15 x 8
+    # channel groups = 120 phase-1 items, 8 x 8 = 64 phase-2 items.
+    stage = (15 * 68 + 64 * 32) * 4
+    want = 3 * stage + 15 * 260 * 4 + 64
+    assert tfs._contract_split_geometry(2, 4, 256, 8, 64, 4) == (want, 1, 1)
+    # 8 x 8 tile, O = 64, S = 2, CH = 32, bfloat16: 81 pixels x 8 groups
+    # need R1 = 4 (21 x 8 = 168 items), 64 x 8 need R2 = 2 (256).
+    stage = (81 * 40 + 32 * 32) * 2
+    want = 3 * stage + tfs._ceil_to(81 * 72 * 2, 16) + tfs._ceil_to(81 * 4, 16)
+    assert tfs._contract_split_geometry(8, 8, 64, 2, 32, 2) == (want, 4, 2)
+    # A product no R <= 4 fits in 256 threads: 25 pixels x 64 groups.
+    assert tfs._contract_split_geometry(4, 4, 256, 1, 32, 4)[1] == 0
+
+
+@pytest.mark.parametrize("c,o,s,itemsize,fits", [
+    (32, 16, 1, 4, True), (32, 16, 4, 4, True), (32, 16, 8, 4, False),
+    (32, 16, 2, 2, True), (32, 16, 4, 2, False),   # O/S = 4: 8 bytes
+    (33, 16, 1, 4, False),                         # C rows of 132 bytes
+    (32, 6, 1, 4, False), (32, 12, 2, 4, False),   # O/S no float4 groups
+    (512, 256, 16, 4, True), (512, 256, 32, 4, False),
+    (64, 2048, 1, 4, False), (64, 2048, 1, 2, True),  # a row of 512 copies
+])
+def test_contract_split_fits(c, o, s, itemsize, fits):
+    assert tfs._contract_split_fits(c, o, s, itemsize) is fits
+
+
+def test_contract_split_candidates_fit_the_kernel():
+    """Every candidate of every measured shape fits a block's shared
+    memory and threads, with a cluster size the kernel takes and tiles
+    no larger than the y2 grid allows."""
+    for n, h, w, c, o, item in _measured_contract_keys():
+        cands = tfs._contract_split_candidates(n, h, w, c, o, item)
+        assert cands, (h, c, o, item)
+        for th, tw, s, ch in cands:
+            smem, r1, r2 = tfs._contract_split_geometry(th, tw, o, s, ch,
+                                                        item)
+            assert smem <= tfs._SMEM_MAX and r1 and r2 and r2 <= r1
+            assert s in (1, 2, 4, 8, 16) and ch in tfs._SPLIT_CHUNKS
+            assert th < h and tw < w
+
+
+def test_contract_split_tuned_plans_are_candidates():
+    """Every measured plan is one the kernel takes for its stage."""
+    for (n, h, w, c, o, item), plan in tfs._CONTRACT_SPLIT_TUNED.items():
+        assert plan in tfs._contract_split_candidates(n, h, w, c, o, item)
+
+
+def test_contract_split_route_only_where_measured():
+    """The split contract route takes exactly the keys of its table, all
+    of them shapes the sweep times; every other shape stays tiled."""
+    measured = _measured_contract_keys()
+    assert set(tfs._CONTRACT_SPLIT_TUNED) <= measured
+    for key in measured:
+        assert tfs._contract_split_plan(*key) == \
+            tfs._CONTRACT_SPLIT_TUNED.get(key)
+
+
+@pytest.mark.parametrize("n,h,w,c,o,itemsize", [
+    (1, 6, 10, 33, 16, 4),     # C = 33: x rows are no whole 16-byte copies
+    (1, 6, 10, 33, 16, 2),
+    (1, 16, 16, 32, 6, 4),     # O = 6: no S gives whole float4 groups
+    (1, 16, 16, 32, 4, 2),     # bf16 O = 4: no O / S slice of 16 bytes
+    (64, 32, 32, 256, 256, 4),  # shapes no sweep times: bs 64,
+    (3, 32, 32, 256, 256, 2),   # bs 3,
+    (4, 16, 16, 512, 2048, 2),  # a wider deep stage
+])
+def test_contract_split_plan_keeps_stage_tiled(n, h, w, c, o, itemsize):
+    assert tfs._contract_split_plan(n, h, w, c, o, itemsize) is None
+
+
+def test_recipe_contract_stages_tiled_unless_measured():
+    """The bs-2 (128^2, depth 32) and depth-1024 recipe stages take the
+    split route only at a plan the sweep measured faster than the tiled
+    kernel, i.e. a key of the table; the rest keep the tiled kernel,
+    whose plan fits."""
+    for n, _, stages in _chip_smoke().RECIPE_STAGES.values():
+        for kind, c, o, h in stages:
+            for item in (2, 4):
+                key = (n, h, h, c, o, item)
+                plan = (tfs._contract_split_plan if kind == "contract_stage"
+                        else tfs._split_plan)(*key)
+                table = (tfs._CONTRACT_SPLIT_TUNED
+                         if kind == "contract_stage" else tfs._SPLIT_TUNED)
+                assert plan == table.get(key)
+                th, tw, bn1, bn2 = tfs._plan(kind == "contract_stage", *key)
+                assert tfs._smem_bytes(kind == "contract_stage", th, tw, o,
+                                       bn1, bn2, item) <= tfs._SMEM_MAX
+
+
+def test_contract_route_on_tensors(monkeypatch):
+    """A contract call takes _contract_split_plan's route; a pointer off
+    a 16-byte boundary keeps the tiled kernel; an unmeasured shape too."""
+    x = torch.zeros(1, 32, 32, 256)
+    w1, w2 = torch.zeros(2, 2, 256, 256), torch.zeros(2, 2, 256, 256)
+    key = (1, 32, 32, 256, 256, 4)
+    monkeypatch.setitem(tfs._CONTRACT_SPLIT_TUNED, key, (2, 4, 8, 64))
+    assert tfs._contract_route(x, w1, w2, 256, 256) == (2, 4, 8, 64)
+    off = torch.zeros(1 + 32 * 32 * 256)[1:].view(1, 32, 32, 256)
+    assert tfs._contract_route(off, w1, w2, 256, 256) is None
+    w1off = torch.zeros(1 + 4 * 256 * 256)[1:].view(2, 2, 256, 256)
+    assert tfs._contract_route(x, w1off, w2, 256, 256) is None
+    monkeypatch.delitem(tfs._CONTRACT_SPLIT_TUNED, key)
+    assert tfs._contract_route(x, w1, w2, 256, 256) is None
+    # The expand route is untouched by the contract table.
+    xe = torch.zeros(1, 8, 8, 1024)
+    assert tfs._expand_route(xe, torch.zeros(2, 2, 1024, 128),
+                             torch.zeros(2, 2, 128, 128), 1024, 128) == \
+        tfs._split_plan(1, 8, 8, 1024, 128, 4)
+
+
+def test_contract_split_tuned_clusters_cover_grid_once():
+    """Each tuned plan's grid, ceil(H2 / th) x S ceil(W2 / tw) blocks in
+    clusters of S, covers every y2 pixel once and every output channel
+    once per pixel."""
+    for (n, h, w, c, o, item), (th, tw, s, ch) in \
+            tfs._CONTRACT_SPLIT_TUNED.items():
+        h2, w2 = h // 2, w // 2
+        hits = np.zeros((h2, w2, o), np.int64)
+        for by in range(-(-h2 // th)):
+            for bx in range(s * -(-w2 // tw)):
+                rank, r0, q0 = bx % s, by * th, (bx // s) * tw
+                c0 = rank * (o // s)
+                hits[r0:r0 + th, q0:q0 + tw, c0:c0 + o // s] += 1
+        assert (hits == 1).all(), (h, c, o, item)
+
+
+def _emulate_contract_split(x, w1, b1, w2, b2, plan, slope):
+    """csrc/contract_split.cu's index arithmetic in float64 torch, one
+    cluster tile at a time: phase 1 from the flat x offsets its loader
+    copies (the patch's x offset pix plus k, and W C - 2C more for the
+    di = 1 row) against w1's rows k, for the computed pixels only, each
+    rank's slice into the padded y1 tile; phase 2 through the tap offsets
+    of that tile. Returns (y2, y1); unwritten entries are NaN."""
+    n, h, w, c = x.shape
+    o = w1.shape[3]
+    th, tw, s, _ = plan
+    os_, gh, gw = o // s, h // 2, w // 2
+    twp, ys = tw + 1, o + 4
+    xf = x.double().reshape(-1)
+    w1f, w2f = w1.double().reshape(4 * c, o), w2.double().reshape(4 * o, o)
+    b1f, b2f = b1.double(), b2.double()
+    k = torch.arange(4 * c)
+    koff = k + (k >= 2 * c).long() * (w * c - 2 * c)
+    y1 = torch.full((n, gh, gw, o), float("nan"), dtype=torch.float64)
+    y2 = torch.full((n, gh, gw, o), float("nan"), dtype=torch.float64)
+
+    def lrelu_(z):
+        return torch.where(z >= 0, z, slope * z)
+
+    for img in range(n):
+        for r0 in range(0, gh, th):
+            for q0 in range(0, gw, tw):
+                nh1, nw1 = min(th + 1, gh - r0), min(twp, gw - q0)
+                nh2, nw2 = min(th, gh - r0), min(tw, gw - q0)
+                m = torch.arange(nh1 * nw1)
+                r, cc = m // nw1, m % nw1
+                pix = img * h * w * c + (2 * (r0 + r) * w + 2 * (q0 + cc)) * c
+                xs = xf[pix[:, None] + koff[None, :]]
+                tile = torch.zeros((th + 1) * twp * ys, dtype=torch.float64)
+                for rank in range(s):
+                    c0 = rank * os_
+                    z = xs @ w1f[:, c0:c0 + os_] + b1f[c0:c0 + os_]
+                    idx = ((r * twp + cc)[:, None] * ys + c0
+                           + torch.arange(os_)[None, :])
+                    tile[idx] = lrelu_(z)
+                own = (r < th) & (cc < tw)
+                y1[img, r0 + r[own], q0 + cc[own]] = tile[
+                    (r[own] * twp + cc[own])[:, None] * ys
+                    + torch.arange(o)[None, :]]
+                m2 = torch.arange(nh2 * nw2)
+                r2, c2 = m2 // nw2, m2 % nw2
+                ybase = (r2 * twp + c2) * ys
+                z2 = b2f.expand(len(m2), o)
+                for tap in range(4):
+                    toff = ((tap >> 1) * twp + (tap & 1)) * ys
+                    ya = tile[ybase[:, None] + toff + torch.arange(o)[None, :]]
+                    z2 = z2 + ya @ w2f[tap * o:(tap + 1) * o]
+                y2[img, r0 + r2, q0 + c2] = lrelu_(z2)
+    return y2, y1
+
+
+@pytest.mark.parametrize("shape,o,plan", [
+    ((2, 6, 10, 8), 8, (1, 1, 1, 32)),     # 1x1 tiles, 3 x 5 grid
+    ((1, 10, 14, 12), 16, (2, 2, 2, 32)),  # ragged 5 x 7, S = 2
+    ((1, 12, 12, 4), 8, (4, 4, 2, 64)),    # ragged 6 x 6, halo leaves
+    ((1, 14, 18, 8), 16, (5, 7, 4, 32)),   # tiles no power of two
+    ((2, 4, 8, 8), 16, (2, 4, 4, 64)),     # one tile per image
+])
+@pytest.mark.parametrize("slope", [0.3, 0.0])
+def test_contract_split_indexing_matches_plain_version(rng, shape, o, plan,
+                                                       slope):
+    args = [torch.from_numpy(a) for a in _args(rng, shape, o)]
+    y2, y1 = _emulate_contract_split(*args, plan, slope)
+    want_y2, want_y1 = tfs.contract_stage_ref(*args, slope)
+    assert not torch.isnan(y2).any() and not torch.isnan(y1).any()
+    _close(y2, want_y2, TOL)
+    _close(y1, want_y1, TOL)
+
+
+@pytest.mark.parametrize("recipe", ["dragon_sss.ini", "sphere_synthetic.ini"])
+def test_recipe_stages_are_the_models_calls(recipe, monkeypatch):
+    """chip_smoke.RECIPE_STAGES lists the stage calls the port's model
+    makes under the recipe's keys: the stage ops replaced by a recorder
+    that returns zeros of the output shape, one forward at the recipe's
+    batch size. dragon_sss runs at 256^2 (its stages' channel widths are
+    what differ from the flagship; the spatial sizes are scaled back)."""
+    from nlt_tpu_torch.models.nlt import Model
+    from nlt_tpu_torch.utils import config as tconfig
+
+    n_want, dtype, stages = _chip_smoke().RECIPE_STAGES[recipe]
+    cfg = tconfig.read_config(os.path.join(ROOT, "nlt_tpu", "config", recipe))
+    scale = 2 if cfg.get_int("depth") > 256 else 1
+    res = cfg.get_int("uvh") // scale
+    for key in ("uvh", "uvw", "imh", "imw"):
+        cfg.set(key, str(res))
+    monkeypatch.setenv("NLT_TPU_FUSED_STAGE", "1")
+    model = Model(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    seen = []
+
+    def recorder(kind):
+        def op(x, w1, b1, w2, b2, slope=0.3, return_y1=False):
+            nb, h, w, c = x.shape
+            o = w1.shape[3]
+            seen.append((kind, c, o, h * scale, nb, x.dtype))
+            if kind == "contract_stage":
+                return x.new_zeros((nb, h // 2, w // 2, o))
+            return x.new_zeros((nb, 2 * h, 2 * w, o))
+        return op
+
+    for kind in ("contract_stage", "expand_stage"):
+        monkeypatch.setattr(tfs, kind, recorder(kind))
+    n = cfg.get_int("bs")
+    rng = np.random.RandomState(0)
+
+    def img(ch):
+        return torch.from_numpy(
+            rng.uniform(0, 1, (n, res, res, ch)).astype(np.float32))
+
+    batch = {"base": img(3), "cvis": img(1), "lvis": img(1), "warp": img(2),
+             "nn_base": img(3), "nn_rgb": img(3), "nn_rgb_camspc": img(3)}
+    with torch.no_grad():
+        model.apply(params, batch, "test", outputs=("pred",))
+    assert n == n_want
+    assert {(b, d) for *_, b, d in seen} == {(n, getattr(torch, dtype))}
+    assert list(dict.fromkeys(s[:4] for s in seen)) == stages
+
+
+def test_build_hash_covers_headers(monkeypatch, tmp_path):
+    """A library's name hashes its source and every header of csrc/, so
+    an edited header (csrc/split_common.cuh, shared by both split
+    kernels) builds anew instead of reusing a stale library."""
+    from nlt_tpu_torch.ops import _build
+
+    real = sorted(os.listdir(_build.CSRC))
+    assert "split_common.cuh" in real
+    for name in ("contract_split.cu", "expand_split.cu"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            assert '#include "split_common.cuh"' in f.read()
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    src, lib = _build._target("a")
+    assert src == str(tmp_path / "a.cu") and _build._target("a")[1] == lib
+    (tmp_path / "h.cuh").write_text("// two\n")
+    lib2 = _build._target("a")[1]
+    assert lib2 != lib
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build._target("a")[1] not in (lib, lib2)
