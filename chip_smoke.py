@@ -24,9 +24,14 @@ Phases, each of which must pass for the run to exit 0:
    shape of dragon_sss.ini (depth 1024, bs 4) and sphere_synthetic.ini
    (128^2, depth 32, bs 2), on whatever route each takes.
    The same for the 2x2 stride-2 conv stage kernel (K4) at nlt_tpu's
-   three shapes at bs 4 (timed), at the shapes of nlt_tpu's kernel
-   tests, at an odd C = 5 / O = 3 and with negative_slope 0. No path of
-   the model runs K4 (as in nlt_tpu), so its main-path launches are 0.
+   three shapes at bs 4 (timed, with per-phase clocks), at the shapes
+   of nlt_tpu's kernel tests, at an odd C = 5 / O = 3, with
+   negative_slope 0, at the kernel's own edges (C in 1, 5, 33, 64, 128
+   x O in 3, 64, 65, 128; C = 256 and 512, whose w is walked in K
+   slices; x off a 16-byte boundary) and with its launch plan held
+   against the Python mirror (ops/conv_stage.py::launch_plan). No path
+   of the model runs K4 (as in nlt_tpu), so its main-path launches
+   are 0.
 3. Serve: a Server over the flagship config (bf16 compute, uint8
    responses) with params from a seeded torch.Generator bakes an
    observation pyramid from two synthetic bs-4 batches, then answers 8
@@ -41,10 +46,13 @@ Phases, each of which must pass for the run to exit 0:
 6. Training at the flagship recipe's full width (dragon_specular.ini:
    bs 4, 512^2, depth0 16 / depth 256, bf16, barron + LPIPS, AMSGrad
    lr 1e-3, cached statics): the resampler-backward scatter kernel (K1)
-   against its plain version at the flagship shape and at forced edge
-   cases; the fused stages' gradients, kernel forward against plain
-   forward, at every flagship stage shape at bs 4 in float32 and
-   bfloat16; then whole steps with the launch counters reset (each step
+   against its plain version at the flagship shape, at forced edge
+   cases and on both of its paths (float4 atomics; the scalar path for
+   W % 4 != 0 or a table or updates off a 16-byte boundary; all-dead
+   and all-duplicate updates), its launch plan against the Python
+   mirror (ops/scatter.py::launch_plan); the fused stages' gradients,
+   kernel forward against plain forward, at every flagship stage
+   shape at bs 4 in float32 and bfloat16; then whole steps with the launch counters reset (each step
    must launch 12 contract + 6 expand + 1 scatter kernels), timed,
    profiled by category, and compared with the same steps through the
    plain versions of the three ops (float32 and bfloat16).
@@ -85,6 +93,7 @@ result line.
 
 import argparse
 import contextlib
+import ctypes
 import glob
 import json
 import shutil
@@ -891,13 +900,33 @@ def train_cfg(compute_dtype="bfloat16"):
         "compute_dtype": compute_dtype})
 
 
-def check_scatter(idx, upd, n_rows, label, exact=False, timing=False):
-    """K1 against scatter_add_rows_ref on the same inputs; with timing,
-    also kernel, plain and index_add_ times and the bound."""
+def scatter_plan(r, w, upd_addr, out_addr):
+    """K1's launch plan from the library (csrc/scatter.cu's make_plan),
+    as a dict of sc.PLAN_KEYS."""
+    out = (ctypes.c_int * len(sc.PLAN_KEYS))()
+    sc._lib().nlt_scatter_plan(r, w, upd_addr, out_addr, out)
+    return dict(zip(sc.PLAN_KEYS, out))
+
+
+def check_scatter(idx, upd, n_rows, label, exact=False, timing=False,
+                  out_offset=None):
+    """K1 against scatter_add_rows_ref on the same inputs, through the
+    wrapper (or, with out_offset, through its launch into a table whose
+    base lies out_offset floats into a fresh buffer); the plan the
+    library took, held against its Python mirror. With timing, also
+    kernel, plain and index_add_ times, the bound, and the op's two
+    parts alone: the table's memset and the kernel on a zeroed table."""
     idx32 = idx.to(torch.int32).contiguous()
+    r, w = upd.shape
     with torch.no_grad():
         before = sc.LAUNCHES["scatter_add_rows"]
-        got = sc.scatter_add_rows(idx32, upd, n_rows)
+        if out_offset is None:
+            got = sc.scatter_add_rows(idx32, upd, n_rows)
+        else:
+            buf = torch.full((out_offset + n_rows * w,), float("nan"),
+                             device=upd.device)
+            got = sc._launch(idx32, upd, n_rows,
+                             out=buf[out_offset:].view(n_rows, w))
         launched = sc.LAUNCHES["scatter_add_rows"] - before
         want = sc.scatter_add_rows_ref(idx, upd, n_rows)
         torch.cuda.synchronize()
@@ -907,12 +936,15 @@ def check_scatter(idx, upd, n_rows, label, exact=False, timing=False):
         ok = launched == 1 and bool(torch.isfinite(got).all()) and (
             bool(torch.equal(got, want)) if exact
             else err <= SCATTER_TOL * scale)
-    r, w = upd.shape
+    plan = scatter_plan(r, w, upd.data_ptr(), got.data_ptr())
+    mirror = sc.launch_plan(r, w, upd.data_ptr(), got.data_ptr())
+    ok &= plan == mirror
     live = int(((idx >= 0) & (idx < n_rows)).sum())
     rec = {"check": "kernel_vs_plain", "kernel": "scatter_add_rows",
            "label": label, "rows": r, "w": w, "n_rows": n_rows,
            "live_rows": live, "exact_required": exact, "launched": launched,
-           "max_abs_err": err,
+           "path": "float4" if plan["wv"] else "scalar", "plan": plan,
+           "plan_equals_mirror": plan == mirror, "max_abs_err": err,
            "tol": 0.0 if exact else SCATTER_TOL * scale, "ok": ok}
     if timing:
         rows = torch.where((idx >= 0) & (idx < n_rows), idx.long(), n_rows)
@@ -921,18 +953,37 @@ def check_scatter(idx, upd, n_rows, label, exact=False, timing=False):
             lambda: sc.scatter_add_rows_ref(idx, upd, n_rows))
         rec["library_ms"] = time_ms(lambda: torch.zeros(
             (n_rows + 1, w), device=upd.device).index_add_(0, rows, upd))
+        table = torch.zeros((n_rows, w), device=upd.device)
+        lib = sc._lib()
+        # The kernel alone also with every row folded into the table's
+        # first quarter (a quarter of the bytes, which stays in L2): what
+        # the table's trips to device memory cost the kernel.
+        folded = torch.where(idx32 >= 0, idx32 % max(1, n_rows // 4),
+                             idx32).to(torch.int32)
+        for part, ix, key in ((1, idx32, "memset_ms"),
+                              (2, idx32, "kernel_only_ms"),
+                              (2, folded, "kernel_only_quarter_table_ms")):
+            rec[key] = time_ms(lambda: lib.nlt_scatter_add_rows_parts(
+                ix.data_ptr(), upd.data_ptr(), table.data_ptr(), r, w,
+                n_rows, part, torch.cuda.current_stream().cuda_stream))
         # Each input read once (the index of every update, the values of
         # the live ones), the table written once.
         nbytes = 4 * r + 4 * w * live + 4 * w * n_rows
         rec["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         rec["bound_by"] = "bytes"
+        rec["memset_bound_ms"] = 4 * w * n_rows / HBM_BYTES_PER_S * 1e3
     emit(**rec)
     return rec
 
 
 def scatter_phase():
-    """K1 at the flagship training shape (4 x 512^2 rows of 12 floats)
-    and at forced edge cases."""
+    """K1 at the flagship training shape (4 x 512^2 rows of 12 floats),
+    at forced edge cases, and on both paths of the kernel: W in 1, 3, 5,
+    12, 16 with the op's own table (float4 path where W % 4 == 0) and
+    with a table one float off a 16-byte boundary (scalar path), updates
+    off a boundary, all updates dead, all updates on one row; then the
+    library's launch plan against its mirror over a sweep of shapes and
+    alignments."""
     g = torch.Generator(device="cuda").manual_seed(7)
     recs = []
     n_rows = TRAIN_BS * RES * RES
@@ -950,6 +1001,44 @@ def scatter_phase():
         i[torch.rand(r, generator=g, device="cuda") < dead] = -1
         u = torch.randn((r, w), generator=g, device="cuda")
         recs.append(check_scatter(i, u, nr, "edge_r%d_w%d" % (r, w)))
+    for w in (1, 3, 5, 12, 16):
+        i = torch.randint(0, 500, (3000,), generator=g, device="cuda")
+        i[torch.rand(3000, generator=g, device="cuda") < 0.3] = -1
+        u = torch.randn((3000, w), generator=g, device="cuda")
+        recs.append(check_scatter(i, u, 500, "w%d" % w))
+        recs.append(check_scatter(i, u, 500, "w%d_table_offset" % w,
+                                  out_offset=1))
+        ok = recs[-2]["path"] == ("float4" if w % 4 == 0 else "scalar") \
+            and recs[-1]["path"] == "scalar"
+        recs.append({"ok": ok})
+        uoff = torch.empty(1 + 3000 * w, device="cuda")[1:].view(3000, w)
+        uoff.copy_(u)
+        recs.append(check_scatter(i, uoff, 500, "w%d_upd_offset" % w))
+        recs.append({"ok": recs[-1]["path"] == "scalar"})
+    dead = torch.where(torch.rand(2048, generator=g, device="cuda") < 0.5,
+                       -1, 600).to(torch.int32)
+    recs.append(check_scatter(dead, torch.randn((2048, 12), generator=g,
+                                                device="cuda"),
+                              600, "all_dead", exact=True))
+    # 64 positive updates on one row: float sums in any order are within
+    # 63 roundings of the total, 3.8e-6 of it, inside SCATTER_TOL.
+    for w in (12, 5):
+        recs.append(check_scatter(
+            torch.full((64,), 3, device="cuda"),
+            torch.rand((64, w), generator=g, device="cuda"), 10,
+            "all_duplicate_w%d" % w))
+    checked, bad = 0, 0
+    for r in (1, 255, 256, 257, 1 << 20, 3 << 22):
+        for w in range(1, 21):
+            for ua in (0, 4, 8):
+                for oa in (0, 4):
+                    a, b = (1 << 30) + ua, (1 << 31) + oa
+                    checked += 1
+                    bad += scatter_plan(r, w, a, b) != \
+                        sc.launch_plan(r, w, a, b)
+    emit(check="scatter_plan_mirror", plans=checked, mismatches=bad,
+         ok=bad == 0)
+    recs.append({"ok": bad == 0})
     return all(r["ok"] for r in recs)
 
 
@@ -1279,6 +1368,15 @@ CONV_TIMED = [(4, 512, 512, 32, 16), (4, 256, 256, 32, 32),
 # tests/test_pallas_kernels.py's shapes, an odd C = 5 / O = 3 and a 1x1.
 CONV_EDGE = [(2, 16, 32, 8, 16), (1, 64, 64, 16, 8), (3, 8, 8, 32, 32),
              (2, 6, 10, 5, 3), (1, 2, 2, 1, 1)]
+# The kernel's own edges (csrc/conv_stage.cu): C in 1, 5, 33 (8-byte
+# copies), 64, 128 (one to 16 K chunks) x O in 3 (one thin block), 64
+# (one block), 65, 128 (two blocks along O), over several pixel tiles;
+# C = 256 and 512 at O >= 64, whose w slice does not fit shared memory
+# beside the ring and is walked in K slices.
+CONV_CARD_EDGE = [(2, 34, 30, c, o) for c in (1, 5, 33, 64, 128)
+                  for o in (3, 64, 65, 128)] + [(1, 12, 10, 256, 64),
+                                                (1, 6, 4, 512, 65)]
+CONV_SWEEP = [1, 3, 5, 8, 16, 32, 64, 65, 128, 256]
 
 
 def conv_library(xc, wc, b, slope):
@@ -1288,13 +1386,28 @@ def conv_library(xc, wc, b, slope):
     return f.leaky_relu(f.conv2d(xc, wc, b, stride=2), slope)
 
 
-def check_conv(shape, slope, seed, timing=False):
+def conv_plan(n_pix, c, o, x_addr):
+    """K4's launch plan from the library (csrc/conv_stage.cu's make_plan),
+    as a dict of cs.PLAN_KEYS."""
+    out = (ctypes.c_int * len(cs.PLAN_KEYS))()
+    cs._lib().nlt_conv_plan(n_pix, c, o, x_addr, out)
+    return dict(zip(cs.PLAN_KEYS, out))
+
+
+def check_conv(shape, slope, seed, timing=False, x_offset=0):
+    """K4 through its wrapper against its plain version; x_offset > 0
+    places x that many floats into a fresh buffer (an x off a 16-byte
+    boundary takes 4- or 8-byte copies)."""
     n, h, w, c, o = shape
     g = torch.Generator().manual_seed(seed)
     lim = (6.0 / (4 * c + 4 * o)) ** 0.5
     x = torch.randn((n, h, w, c), generator=g).to("cuda")
+    if x_offset:
+        buf = torch.empty(x_offset + x.numel(), device="cuda")
+        x = buf[x_offset:].view(n, h, w, c).copy_(x)
     wt = ((torch.rand((2, 2, c, o), generator=g) * 2 - 1) * lim).to("cuda")
     b = (torch.randn(o, generator=g) * 0.1).to("cuda")
+    plan = conv_plan(n * (h // 2) * (w // 2), c, o, x.data_ptr())
     with torch.no_grad():
         # The wrapper, as a caller would call it: it must launch the
         # kernel exactly once (a plain-version stand-in launches nothing).
@@ -1309,6 +1422,7 @@ def check_conv(shape, slope, seed, timing=False):
               and err <= CONV_TOL * scale)
     rec = {"check": "kernel_vs_plain", "kernel": "conv2x2s2_lrelu",
            "x": [n, h, w, c], "o": o, "negative_slope": slope,
+           "x_offset": x_offset, "plan": plan,
            "launched": launched, "max_abs_err": err,
            "tol": CONV_TOL * scale, "ok": ok}
     if timing:
@@ -1328,8 +1442,65 @@ def check_conv(shape, slope, seed, timing=False):
         t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
         rec.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rec["clocks"] = conv_clocks(x, wt, b, slope)
     emit(**rec)
     return rec
+
+
+def conv_clocks(x, wt, b, slope):
+    """Per-phase clocks of one K4 launch (nlt_conv2x2s2_lrelu_clocks:
+    thread 0 of every block), averaged over the blocks: cycles of the
+    prologue (w staging and the first stages issued), of waiting for
+    stages (cp.async wait and barrier), of issuing copies, of FMAs and
+    of epilogues; ns per cycle from the blocks' global timer; tiles per
+    block; the kernel's span."""
+    n, h, w, c = x.shape
+    o = wt.shape[3]
+    plan = conv_plan(n * (h // 2) * (w // 2), c, o, x.data_ptr())
+    clk = torch.zeros((plan["o_tiles"] * plan["pix_tiles"], 9),
+                      dtype=torch.int64, device=x.device)
+    y = torch.empty((n, h // 2, w // 2, o), device=x.device)
+    lib = cs._lib()
+    err = lib.nlt_conv2x2s2_lrelu_clocks(
+        x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, w, c,
+        o, float(slope), clk.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err != 0:
+        return {"error": lib.nlt_conv_stage_error_string(err).decode()}
+    k = clk[clk[:, 1] != 0].double().cpu()
+    cyc = k[:, 7] - k[:, 1]
+    parts = {"prologue": k[:, 2] - k[:, 1], "wait": k[:, 3],
+             "issue": k[:, 4], "fma": k[:, 5], "epilogue": k[:, 6]}
+    return {"blocks": int(k.shape[0]),
+            "tiles_per_block": plan["pix_tiles"] * plan["o_tiles"]
+            / max(1, int(k.shape[0])),
+            "cycles": float(cyc.mean()),
+            "ns_per_cycle": float(((k[:, 8] - k[:, 0])
+                                   / cyc.clamp_min(1)).mean()),
+            "mean_cycles": {p: float(v.mean()) for p, v in parts.items()},
+            "kernel_span_ns": float(k[:, 8].max() - k[:, 0].min())}
+
+
+def conv_plan_checks():
+    """The library's launch plan equals its Python mirror
+    (cs.launch_plan) at every shape this script runs K4 at and over the
+    sweep of C and O, at three x alignments."""
+    cases = [(n * (h // 2) * (w // 2), c, o)
+             for n, h, w, c, o in CONV_TIMED + CONV_EDGE + CONV_CARD_EDGE]
+    cases += [(n_pix, c, o) for c in CONV_SWEEP for o in CONV_SWEEP
+              for n_pix in (1, 4 * 64 * 64 + 1)]
+    bad = []
+    for n_pix, c, o in cases:
+        for addr in (1 << 30, (1 << 30) + 8, (1 << 30) + 4):
+            got, want = conv_plan(n_pix, c, o, addr), \
+                cs.launch_plan(n_pix, c, o, addr)
+            if got != want:
+                bad.append({"case": [n_pix, c, o, addr], "got": got,
+                            "want": want})
+    emit(check="conv_plan_mirror", plans=3 * len(cases), mismatches=bad[:5],
+         ok=not bad)
+    return not bad
 
 
 def conv_phase():
@@ -1338,10 +1509,18 @@ def conv_phase():
     for i, shape in enumerate(CONV_EDGE):
         for slope in (0.3, 0.0):
             recs.append(check_conv(shape, slope, 300 + i))
+    for i, shape in enumerate(CONV_CARD_EDGE):
+        recs.append(check_conv(shape, 0.3, 330 + i))
+    # x one and two floats off a 16-byte boundary: 4- and 8-byte copies.
+    for off in (1, 2):
+        rec = check_conv((2, 34, 30, 64, 64), 0.3, 370 + off, x_offset=off)
+        rec["ok"] &= rec["plan"]["vw"] == (1 if off == 1 else 2)
+        recs.append(rec)
     for i, shape in enumerate(CONV_TIMED):
         recs.append(check_conv(shape, 0.0, 310 + i))
         timed.append(check_conv(shape, 0.3, 320 + i, timing=True))
-    return all(r["ok"] for r in recs + timed), timed
+    ok = conv_plan_checks()
+    return ok and all(r["ok"] for r in recs + timed), timed
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,9 @@ the Pallas kernel ``_kernel`` of nlt_tpu/ops/conv_stage_pallas.py. On a
 CPU tensor the op runs its plain version (``conv2x2s2_lrelu_ref``, the
 space-to-depth matmul); on a CUDA tensor it launches the kernel or
 raises. float32 only, as nlt_tpu documents it. ``LAUNCHES`` counts kernel
-launches.
+launches. The kernel's launch plan (tile, ring, shared memory, the
+K-slice rule) is ``launch_plan``, a mirror of the C side that the CPU
+tests and ``chip_smoke.py`` hold against it.
 """
 
 import ctypes
@@ -40,6 +42,63 @@ def conv2x2s2_lrelu_ref(x, w, b, negative_slope=0.3):
     return torch.where(y >= 0, y, negative_slope * y)
 
 
+# Mirrors csrc/conv_stage.cu: threads a block, ring depth, a block's and
+# an SM's shared memory on the H100.
+_THREADS, _STAGES, _SMEM_MAX, _SMEM_SM = 256, 3, 232448, 233472
+PLAN_KEYS = ("og", "pm", "tp", "vw", "nkc", "resident", "o_tiles",
+             "pix_tiles", "smem", "stages", "chunk")
+
+
+def _chunk_plan(tp, to, c, kc):
+    """(nkc, resident, smem) of K chunks of kc rows: w's (4C, TO) slice
+    stays resident beside the ring where it fits (else each stage
+    carries its K slice); a stage holds tp rows of kc + 4 floats and tp
+    8-byte pixel offsets."""
+    nkc = max(1, -(-4 * c // kc))
+    stage = tp * (kc + 4) * 4 + tp * 8
+    w_res = nkc * kc * to * 4
+    resident = w_res + _STAGES * stage <= _SMEM_MAX
+    smem = (w_res + _STAGES * stage if resident
+            else _STAGES * (stage + kc * to * 4))
+    return nkc, int(resident), smem
+
+
+def _blocks_per_sm(smem):
+    """Blocks an SM holds by shared memory (1 KB reserved each), at most
+    2 (registers)."""
+    return min(2, _SMEM_SM // (smem + 1024))
+
+
+def launch_plan(n_pix, c, o, x_addr):
+    """The kernel's launch plan for n_pix output pixels, C, O and x's
+    address (csrc/conv_stage.cu's make_plan), as a dict of PLAN_KEYS:
+    og 4-channel groups per block (the least power of two covering O,
+    at most 16, so O <= 64 is one block along O), pm pixels per thread,
+    tp = 256 / og x pm pixels per tile, vw floats per x copy (4 where 2C
+    is a multiple of 4 and x is 16-byte aligned, else 2 where x is
+    8-byte aligned, else 1), the chunk of K rows a ring stage holds (64
+    where 4C > 32 and an SM holds as many blocks as with 32, else 32),
+    nkc K chunks, whether w stays resident (the K-slice rule of
+    _chunk_plan), the grid's O tiles, the pixel tiles, the dynamic
+    shared memory."""
+    groups = -(-o // 4)
+    og = 1
+    while og < groups and og < 16:
+        og *= 2
+    pm = 8 if og == 16 else 4 if og >= 4 else og
+    tp = _THREADS // og * pm
+    vw = 4 if (2 * c) % 4 == 0 and x_addr % 16 == 0 else \
+        2 if x_addr % 8 == 0 else 1
+    chunk, (nkc, resident, smem) = 32, _chunk_plan(tp, 4 * og, c, 32)
+    if 4 * c > 32:
+        wide = _chunk_plan(tp, 4 * og, c, 64)
+        if _blocks_per_sm(wide[2]) >= _blocks_per_sm(smem):
+            chunk, (nkc, resident, smem) = 64, wide
+    return dict(og=og, pm=pm, tp=tp, vw=vw, nkc=nkc, resident=resident,
+                o_tiles=-(-o // (4 * og)), pix_tiles=-(-n_pix // tp),
+                smem=smem, stages=_STAGES, chunk=chunk)
+
+
 _LIB = None
 
 
@@ -54,6 +113,12 @@ def _lib():
         lib.nlt_conv2x2s2_lrelu.argtypes = [p, p, p, p, i, i, i, i, i,
                                             ctypes.c_float, p]
         lib.nlt_conv2x2s2_lrelu.restype = i
+        lib.nlt_conv2x2s2_lrelu_clocks.argtypes = [p, p, p, p, i, i, i, i,
+                                                   i, ctypes.c_float, p, p]
+        lib.nlt_conv2x2s2_lrelu_clocks.restype = i
+        lib.nlt_conv_plan.argtypes = [ctypes.c_longlong, i, i,
+                                      ctypes.c_ulonglong, p]
+        lib.nlt_conv_plan.restype = None
         lib.nlt_conv_stage_error_string.argtypes = [i]
         lib.nlt_conv_stage_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -26,12 +26,14 @@ H100.
 The packing, the row blocks and the halo BlockSpecs are TPU layout
 devices; ``expand_split_kernel`` of csrc/expand_split.cu and
 ``expand_kernel`` of csrc/fused_stage.cu cover every channel count.
-The split kernel was faster on the H100 at every flagship expand stage
-it can take, at bs 1 and 4; ``_split_plan`` routes exactly those
-stages, at the plans measured there (``_SPLIT_TUNED``: S > 1 on the
-deep 8^2 to 32^2 stages, S = 1 from 64^2 on). The tiled kernel keeps
-the bf16 stage with O = 4, whose O / S slice is no whole 16-byte copy,
-and every shape of another recipe or batch size.
+The split kernel was faster on the H100 at every expand stage it can
+take that the sweep times (the flagship stages at bs 1 and 4 and the
+stages of dragon_sss.ini and sphere_synthetic.ini); ``_split_plan``
+routes exactly those stages, at the plans measured there
+(``_SPLIT_TUNED``: S > 1 on the deep 2^2 to 32^2 stages, S = 1 from
+64^2 on and at the bs-2 recipe's). The tiled kernel keeps the bf16
+stages with O = 4, whose O / S slice is no whole 16-byte copy, and
+every shape no sweep timed.
 
 A call whose pointers are off a 16-byte boundary stays tiled. A split
 launch the card refuses raises; there is no fallback.
@@ -261,14 +263,17 @@ def _split_candidates(n, h, w, c, o, itemsize):
                        _split_geometry)
 
 
-# The split route's plans, keyed (n, h, w, c, o, itemsize): the flagship
-# expand stages at bs 1 and 4, where `python3 chip_smoke.py --sweep` on
-# an H100 SXM (700 W) timed every candidate beside the tiled kernel and
-# the split kernel won at every stage it can take (2.3-18x at 8^2 to
-# 32^2, 2.2-2.7x at 64^2 to 256^2). The deep stages (8^2 to 32^2) keep
-# the fastest plan with S > 1 (at 32^2 bf16 bs 1 it is 7% behind an
-# S = 1 plan); from 64^2 on, with tiles enough for the card, S = 1 won.
-# A stage of another recipe joins once a sweep has timed its shapes.
+# The split route's plans, keyed (n, h, w, c, o, itemsize): every
+# expand stage `python3 chip_smoke.py --sweep` times (the flagship
+# stages at bs 1 and 4, dragon_sss.ini's at bs 4, sphere_synthetic.ini's
+# at bs 2), where on an H100 SXM (700 W) it timed every candidate beside
+# the tiled kernel and the split kernel won at every stage it can take
+# (2.3-18x at the flagship 8^2 to 32^2, 2.2-2.7x at 64^2 to 256^2;
+# 14-70x at dragon_sss.ini's 2^2 to 8^2; 2.9-3.5x at the bs-2 recipe's).
+# The flagship deep stages (8^2 to 32^2) keep the fastest plan with
+# S > 1 (at 32^2 bf16 bs 1 it is 7% behind an S = 1 plan); from 64^2 on,
+# with tiles enough for the card, S = 1 won. bf16 O = 4 stays tiled (no
+# 16-byte O/S row); a shape no sweep timed stays tiled.
 _SPLIT_TUNED = {
     (1, 8, 8, 1024, 128, 2): (2, 4, 8, 64),
     (1, 8, 8, 1024, 128, 4): (2, 4, 8, 64),
@@ -292,6 +297,19 @@ _SPLIT_TUNED = {
     (4, 128, 128, 80, 8, 2): (8, 8, 1, 64),
     (4, 128, 128, 80, 8, 4): (8, 8, 1, 64),
     (4, 256, 256, 40, 4, 4): (8, 8, 1, 64),
+    # dragon_sss.ini (depth 1024), bs 4.
+    (4, 2, 2, 4096, 512, 2): (2, 1, 8, 64),
+    (4, 2, 2, 4096, 512, 4): (2, 2, 8, 32),
+    (4, 4, 4, 2560, 256, 2): (2, 4, 8, 64),
+    (4, 4, 4, 2560, 256, 4): (2, 4, 8, 64),
+    (4, 8, 8, 1280, 128, 2): (1, 4, 2, 64),
+    (4, 8, 8, 1280, 128, 4): (4, 1, 2, 64),
+    # sphere_synthetic.ini (128^2, depth 32), bs 2.
+    (2, 16, 16, 128, 16, 2): (1, 4, 1, 64),
+    (2, 16, 16, 128, 16, 4): (2, 2, 1, 64),
+    (2, 32, 32, 80, 8, 2): (4, 4, 1, 64),
+    (2, 32, 32, 80, 8, 4): (8, 4, 1, 64),
+    (2, 64, 64, 40, 4, 4): (8, 8, 1, 64),
 }
 
 

@@ -11,10 +11,14 @@ Pallas kernel ``_kernel`` of nlt_tpu/ops/scatter_pallas.py (launched by
 ``scatter_add_rows_planned``). nlt_tpu's routing plan (pieces, chunks,
 dump rows, ``[lo, hi)`` scan bounds, the custom partitioning) exists to
 fit the table in VMEM and the indices in SMEM; the CUDA kernel needs
-none of it: it zeroes the table and adds every live update element with
-a float atomic. It is bound by bytes (read the updates and indices once,
-write the table once). Sums over duplicate rows come out in no fixed
-order, as nlt_tpu's "up to accumulation order" allows.
+none of it: it zeroes the table, then one thread per update row loads
+the row's index once and adds a live row with float4 vector atomics
+(a scalar path inside the same kernel where W is no multiple of 4 or
+above 16, or a pointer is off a 16-byte boundary; ``launch_plan``
+mirrors the choice and the grid). It is bound by bytes (read the
+updates and indices once, write the table once). Sums over duplicate
+rows come out in no fixed order, as nlt_tpu's "up to accumulation
+order" allows.
 
 On a CPU tensor the op runs its plain version (``scatter_add_rows_ref``,
 ``index_add_`` with skipped updates sent to a dump row); on a CUDA tensor
@@ -43,6 +47,24 @@ def scatter_add_rows_ref(idx, upd, n_rows):
     return out.index_add_(0, rows, upd)[:n_rows]
 
 
+# Mirrors csrc/scatter.cu: threads a block, the grid's cap (SMs x
+# resident blocks), the widest row of the float4 path (in float4s).
+_THREADS, _MAX_BLOCKS, _MAX_WV = 256, 132 * 16, 4
+PLAN_KEYS = ("wv", "blocks")
+
+
+def launch_plan(r, w, upd_addr, out_addr):
+    """The kernel's launch plan for r update rows of w floats at the two
+    addresses (csrc/scatter.cu's make_plan), as a dict of PLAN_KEYS: the
+    float4s per row on the float4 path (w a multiple of 4 up to 16, both
+    pointers 16-byte aligned), else 0, the scalar path; and the grid of
+    256-thread blocks, one thread per row in a grid-stride loop."""
+    vec = (w % 4 == 0 and w // 4 <= _MAX_WV and upd_addr % 16 == 0
+           and out_addr % 16 == 0)
+    return dict(wv=w // 4 if vec else 0,
+                blocks=min(-(-r // _THREADS), _MAX_BLOCKS))
+
+
 _LIB = None
 
 
@@ -57,16 +79,26 @@ def _lib():
         lib.nlt_scatter_add_rows.argtypes = [p, p, p, ctypes.c_longlong, i, i,
                                              p]
         lib.nlt_scatter_add_rows.restype = i
+        lib.nlt_scatter_add_rows_parts.argtypes = [p, p, p, ctypes.c_longlong,
+                                                   i, i, i, p]
+        lib.nlt_scatter_add_rows_parts.restype = i
+        lib.nlt_scatter_plan.argtypes = [ctypes.c_longlong, i,
+                                         ctypes.c_ulonglong,
+                                         ctypes.c_ulonglong, p]
+        lib.nlt_scatter_plan.restype = None
         lib.nlt_scatter_error_string.argtypes = [i]
         lib.nlt_scatter_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def _launch(idx, upd, n_rows):
-    """Launch the kernel on checked CUDA tensors."""
+def _launch(idx, upd, n_rows, out=None):
+    """Launch the kernel on checked CUDA tensors, into `out` (a
+    contiguous (n_rows, W) float32 tensor) if given, else a new one."""
     r, w = upd.shape
-    out = torch.empty((n_rows, w), dtype=torch.float32, device=upd.device)
+    if out is None:
+        out = torch.empty((n_rows, w), dtype=torch.float32,
+                          device=upd.device)
     lib = _lib()
     with torch.cuda.device(upd.device):
         stream = torch.cuda.current_stream(upd.device).cuda_stream

@@ -227,13 +227,20 @@ def test_split_plan_keeps_stage_tiled(n, h, w, c, o, itemsize):
 
 
 def test_split_route_only_where_measured():
-    """The split route takes only the flagship expand stages at bs 1 and
-    4, the shapes whose two routes were timed on the card."""
-    measured = {(n, h, h, c, o, item) for contract, c, o, h in FLAGSHIP_STAGES
-                if not contract for n in (1, 4) for item in (2, 4)}
+    """The split expand route takes exactly the keys of its table, all of
+    them shapes the sweep times (flagship and recipe stages); every
+    other shape stays tiled. Each recipe expand stage the sweep measured
+    faster split is routed, so only bf16 O = 4 keeps the tiled kernel."""
+    measured = _measured_expand_keys()
     assert set(tfs._SPLIT_TUNED) <= measured
     for key in measured:
         assert tfs._split_plan(*key) == tfs._SPLIT_TUNED.get(key)
+    recipe = {(n, h, h, c, o, item)
+              for n, _, stages in _chip_smoke().RECIPE_STAGES.values()
+              for kind, c, o, h in stages if kind == "expand_stage"
+              for item in (2, 4)}
+    assert {k for k in recipe if tfs._split_plan(*k) is None} == {
+        (2, 64, 64, 40, 4, 2), (4, 256, 256, 40, 4, 2)}
 
 
 def test_split_geometry_by_hand():
@@ -369,16 +376,25 @@ def _chip_smoke():
     return mod
 
 
-def _measured_contract_keys():
-    """Every contract shape chip_smoke.py --sweep times: the flagship
-    stages at bs 1 and 4 and the recipe stages at their batch size, in
-    both dtypes."""
-    keys = {(n, h, h, c, o, item) for contract, c, o, h in FLAGSHIP_STAGES
-            if contract for n in (1, 4) for item in (2, 4)}
+def _measured_keys(contract):
+    """Every contract (expand) shape chip_smoke.py --sweep times: the
+    flagship stages at bs 1 and 4 and the recipe stages at their batch
+    size, in both dtypes."""
+    kind = "contract_stage" if contract else "expand_stage"
+    keys = {(n, h, h, c, o, item) for is_c, c, o, h in FLAGSHIP_STAGES
+            if is_c == contract for n in (1, 4) for item in (2, 4)}
     for n, _, stages in _chip_smoke().RECIPE_STAGES.values():
-        keys |= {(n, h, h, c, o, item) for kind, c, o, h in stages
-                 if kind == "contract_stage" for item in (2, 4)}
+        keys |= {(n, h, h, c, o, item) for k, c, o, h in stages
+                 if k == kind for item in (2, 4)}
     return keys
+
+
+def _measured_contract_keys():
+    return _measured_keys(True)
+
+
+def _measured_expand_keys():
+    return _measured_keys(False)
 
 
 def test_contract_split_geometry_by_hand():

@@ -98,3 +98,22 @@ def test_argument_checks():
                              torch.zeros(4, 2), 8)
     with pytest.raises(TypeError):
         tsc.scatter_add_rows(torch.zeros(4), torch.zeros(4, 2), 8)
+
+
+@pytest.mark.parametrize("w", [1, 3, 5, 12, 16, 20])
+def test_launch_plan_paths_and_grid(w):
+    """csrc/scatter.cu's launch plan, mirrored by launch_plan: the float4
+    path only where W is a multiple of 4 up to 16 (W / 4 fixed at compile
+    time) and both pointers are 16-byte aligned, else the scalar path; a
+    grid of 256-thread blocks, capped at 132 x 16, that reaches every
+    row in its grid-stride loop and has no idle block."""
+    for r in (1, 255, 256, 257, 1 << 20, 3 << 22):
+        for upd_off, out_off in ((0, 0), (4, 0), (0, 4), (8, 8), (16, 32)):
+            p = tsc.launch_plan(r, w, (1 << 30) + upd_off,
+                                (1 << 31) + out_off)
+            vec = (w % 4 == 0 and w <= 16 and upd_off % 16 == 0
+                   and out_off % 16 == 0)
+            assert p["wv"] == (w // 4 if vec else 0)
+            assert 1 <= p["blocks"] <= 132 * 16
+            assert (p["blocks"] - 1) * 256 < r
+            assert p["blocks"] * 256 >= r or p["blocks"] == 132 * 16
