@@ -42,7 +42,10 @@ Phases, each of which must pass for the run to exit 0:
    uint8 within 1 LSB; bfloat16 compute at a bf16 tolerance.
 5. Serving latency and frames/sec at bs 1 and bs 4, kernels and plain;
    device time per request and latency with each op's stages on the
-   tiled route against the planner's routes, in turns.
+   tiled route against the planner's routes, in turns; bs-1 latency
+   and the host time of a stage call with the stage ops called through
+   their registered custom ops, a direct ctypes launch and the launch
+   registered with Library.define, in turns.
 6. Training at the flagship recipe's full width (dragon_specular.ini:
    bs 4, 512^2, depth0 16 / depth 256, bf16, barron + LPIPS, AMSGrad
    lr 1e-3, cached statics): the resampler-backward scatter kernel (K1)
@@ -69,7 +72,24 @@ Phases, each of which must pass for the run to exit 0:
    after epoch 2 and resumed to 3 against the run that was not stopped;
    restore_model(step='best') and a Server answering one request from
    the checkpoint; epoch times, the loader's share and the device's idle
-   share of a warm epoch (a profiled run).
+   share of a warm epoch (a profiled run). The scene holds 9 test views
+   (test batches of 4, 4 and 1 at the recipe's bs 4), which phase 8
+   reads; trainvali never does.
+8. Test-time inference and the rest of serving on phase 7's main run:
+   python -m nlt_tpu_torch.nlt_test --step best in a subprocess (exit
+   0, 9 frames with the 9 test ids, a 9-frame video); nlt_test.main in
+   this process with the launch counters reset (6 contract for the obs
+   batch of extract_feat, 6 + 6 per test batch), then through the plain
+   versions (frames within 1 LSB, metadata equal), with seconds per
+   test batch and the share of infer that is vis writing;
+   Server.predict(ids=) at bs 1 and 4 (the first call misses, a repeat
+   hits every row, bit-equal to the uploaded path, invalidate() serves
+   new content under the same ids, no host-to-device copy in a cached
+   request's device profile; device ms and latency against the uploaded
+   path, in turns); the serve CLI (streamed and cached stats; an export
+   bundle of bs 1 and 4) and ExportedServer on that bundle (bit-equal to
+   the live Server, 6 + 6 launches a request, bs 2 refused; latency and
+   device ms against the live server, in turns).
 
 Prints the card's name and power limit, one JSON line per check and
 timing, a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
@@ -105,6 +125,7 @@ import types
 
 import numpy as np
 import torch
+from PIL import Image
 
 from nlt_tpu_torch import trainvali
 from nlt_tpu_torch.datasets import get_dataset_class
@@ -229,7 +250,8 @@ def make_server(fused, compute_dtype, device, pyramid=None, pack="uint8",
                     pack=pack, device=device)
     if share_state_with is not None:
         server.state = share_state_with.state
-    server.precompute_obs(pyramid, n_obs_batches=2)
+    if pyramid is not None:  # else the requests' own observations
+        server.precompute_obs(pyramid, n_obs_batches=2)
     return server
 
 
@@ -818,19 +840,24 @@ def _category(name):
     return "other elementwise/copy"
 
 
-def profile_requests(server, req, n=3, label=""):
+def profile_requests(server, req, n=3, label="", ids=None):
     """Device time per request by category, from torch.profiler over n
-    requests of the main path; the busy share is device time over the
-    requests' wall time."""
+    requests of the main path (from the device input cache if `ids`);
+    the busy share is device time over the requests' wall time. Returns
+    {category: ms per request} (empty when no device time was traced)."""
     from torch.profiler import ProfilerActivity, profile
 
-    server.predict(req)
+    def request():
+        return server.predict(req) if ids is None else server.predict(
+            req, ids=ids)
+
+    request()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            server.predict(req)
+            request()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     cats, total = {}, 0.0
@@ -850,11 +877,12 @@ def profile_requests(server, req, n=3, label=""):
         emit(phase="profile", label=label, wall_ms_per_request=wall_ms,
              device_ms_per_request="not measured",
              note="torch.profiler recorded no device time")
-        return
+        return {}
     emit(phase="profile", label=label, bs=int(req["base"].shape[0]),
          wall_ms_per_request=wall_ms, device_ms_per_request=total,
          device_busy_share=total / wall_ms,
          by_category_ms=dict(sorted(cats.items(), key=lambda kv: -kv[1])))
+    return cats
 
 
 def compare_predict(a, b, reqs, f32_tol, lsb_tol, label):
@@ -1068,6 +1096,49 @@ def check_stage_grad(kind, shape, o, dtype, seed):
          o=o, dtype=str(dtype)[6:], metric="rel_l2",
          errs_dx_dw1_db1_dw2_db2=errs, tol=GRAD_TOL[dtype], ok=ok)
     return ok
+
+
+def _direct(kind):
+    """The stage op's inference call as a bare ctypes launch."""
+    def launch(x, w1, b1, w2, b2, slope):
+        fs._check(kind, x, w1, b1, w2, b2)
+        return fs._launch(kind, x, w1, b1, w2, b2, slope, False)
+    return launch
+
+
+_PROBE_LIB = []
+
+
+def _probe_ops():
+    """The two stage launches registered a second way, for timing only:
+    torch.library.Library.define + impl (a Python kernel behind the C++
+    dispatcher, none of custom_op's Python layers)."""
+    if not _PROBE_LIB:
+        lib = torch.library.Library("nlt_smoke_probe", "DEF")
+        for kind in fs.OPS:
+            lib.define(kind + "(Tensor x, Tensor w1, Tensor b1, Tensor w2, "
+                       "Tensor b2, float slope) -> Tensor")
+            lib.impl(kind, _direct(kind), "CUDA")
+        _PROBE_LIB.append(lib)
+    return {k: getattr(torch.ops.nlt_smoke_probe, k).default
+            for k in fs.OPS}
+
+
+@contextlib.contextmanager
+def stage_dispatch(how):
+    """'direct': the stage ops' inference calls launch through ctypes
+    without the torch.library dispatcher (the path before the ops were
+    registered); 'op': the registered custom ops (the port's path);
+    'library': the same launch registered with Library.define + impl."""
+    orig = dict(fs.OPS)
+    if how == "direct":
+        fs.OPS.update({kind: _direct(kind) for kind in orig})
+    elif how == "library":
+        fs.OPS.update(_probe_ops())
+    try:
+        yield
+    finally:
+        fs.OPS.update(orig)
 
 
 @contextlib.contextmanager
@@ -1591,7 +1662,8 @@ def _losses_close(a, b, rtol):
 
 
 def trainvali_phase(work, card):
-    """Returns (ok, launches of the main run)."""
+    """Returns (ok, launches of the main run, the main run's outdir or
+    None)."""
     ok = True
     t0 = time.perf_counter()
     scene = os.path.join(work, "scene512")
@@ -1600,13 +1672,13 @@ def trainvali_phase(work, card):
     proc = subprocess.run(
         [sys.executable, os.path.join(repo, "data_gen", "synthesize.py"),
          "--outroot", scene, "--imh", "512", "--uvs", "512", "--n_cams",
-         "4", "--n_lights", "4", "--n_test", "1"],
+         "4", "--n_lights", "4", "--n_test", str(N_TEST)],
         capture_output=True, text=True)
     emit(phase="trainvali_scene", rc=proc.returncode,
          seconds=time.perf_counter() - t0,
          stderr_tail=proc.stderr[-500:] if proc.returncode else "")
     if proc.returncode != 0:
-        return False, {}
+        return False, {}, None
 
     # The main path: 3 epochs of the recipe, counters reset.
     torch.cuda.synchronize()
@@ -1754,7 +1826,292 @@ def trainvali_phase(work, card):
     del model, server
     emit(phase="trainvali_all", seconds=time.perf_counter() - t0,
          ok=bool(ok))
-    return bool(ok), launches
+    return bool(ok), launches, main_out
+
+
+# ---------------------------------------------------------------------------
+# 8. Test-time inference and the rest of serving, on phase 7's main run
+# ---------------------------------------------------------------------------
+
+# Test views of phase 7's scene (synthesize.py --n_test); at the recipe's
+# bs 4 they make batches of 4, 4 and a remainder of 1.
+N_TEST = 9
+# Per test batch (and per request with the pyramid): the query path's 6
+# contract + 6 expand stages; per obs batch of extract_feat: 6 contract.
+QUERY_LAUNCHES = {"contract_stage": 6, "expand_stage": 6}
+OBS_LAUNCHES = {"contract_stage": 6, "expand_stage": 0}
+
+
+def _read_vis(vis_root):
+    """{view id: (pred frame, metadata)} of a vis_test root, and the
+    sorted batch dir names."""
+    out, dirs = {}, sorted(os.listdir(vis_root)) if os.path.isdir(
+        vis_root) else []
+    for d in dirs:
+        for meta_path in glob.glob(os.path.join(vis_root, d,
+                                                "*_metadata.json")):
+            with open(meta_path) as h:
+                meta = json.load(h)
+            pred = meta_path[:-len("metadata.json")] + "pred.png"
+            out[meta["id"]] = (np.asarray(Image.open(pred)), meta)
+    return out, dirs
+
+
+def _video_frames(path):
+    """Frames in the compiled video (or its GIF fallback)."""
+    if path.endswith((".gif", ".png", ".apng")):
+        return Image.open(path).n_frames
+    import imageio
+    return len(imageio.mimread(path))
+
+
+def run_nlt_test(ckpt_dir):
+    """nlt_tpu_torch.nlt_test.main(--step best) in this process, counters
+    reset: (video path, launches of extract_feat, launches in all,
+    {infer_s, vis_s: host seconds in Model.vis_batch, batches})."""
+    from nlt_tpu_torch import nlt_test
+
+    clock, feat_launches = {"vis_s": 0.0, "batches": 0}, {}
+    orig_infer, orig_feat = nlt_test.infer, nlt_test.extract_feat
+    orig_vis = Model.vis_batch
+
+    def extract_feat(*a, **kw):
+        out = orig_feat(*a, **kw)
+        feat_launches.update(fs.LAUNCHES)
+        return out
+
+    def infer(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_infer(*a, **kw)
+        torch.cuda.synchronize()
+        clock["infer_s"] = time.perf_counter() - t0
+        return out
+
+    def vis_batch(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig_vis(*a, **kw)
+        clock["vis_s"] += time.perf_counter() - t0
+        clock["batches"] += 1
+        return out
+
+    nlt_test.infer, nlt_test.extract_feat = infer, extract_feat
+    Model.vis_batch = vis_batch
+    _reset_launches()
+    try:
+        video = nlt_test.main(["--ckpt", ckpt_dir, "--step", "best"])
+    finally:
+        nlt_test.infer, nlt_test.extract_feat = orig_infer, orig_feat
+        Model.vis_batch = orig_vis
+    return video, feat_launches, dict(fs.LAUNCHES), clock
+
+
+def _host(batch, n=None):
+    """A test batch's array fields (its first n rows) and ids."""
+    arrays = {k: v[:n] for k, v in batch.items() if not isinstance(v, list)}
+    return arrays, list(batch["id"][:n])
+
+
+def _bit_equal(a, b):
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def _median_latency_ms(predict, req, n=20):
+    predict(req)
+    lats = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        predict(req)
+        lats.append(time.perf_counter() - t0)
+    return float(np.median(lats)) * 1e3
+
+
+def inference_phase(main_out, card):
+    """Returns (ok, launches by path: nlt_test, serve_cached, exported)."""
+    from nlt_tpu_torch import serve as serve_mod
+    from nlt_tpu_torch.utils import checkpoint as ckpt_mod
+
+    ok = True
+    ckpt = os.path.join(main_out, "checkpoints")
+    cfg = config_mod.read_config(main_out.rstrip("/") + ".ini")
+    test_set = get_dataset_class("nlt")(cfg, "test")
+    test_ids = sorted(test_set.files)
+    best = ckpt_mod.resolve_step(ckpt, "best")
+    vis_test = os.path.join(main_out, "vis_test")
+    vis_root = os.path.join(vis_test, "ckpt-%d_pred" % best)
+    n_batches = -(-N_TEST // cfg.get_int("bs"))
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    # The nlt_test CLI, as a user runs it.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nlt_tpu_torch.nlt_test", "--ckpt", ckpt,
+         "--step", "best"], capture_output=True, text=True, cwd=repo,
+        timeout=900)
+    frames, dirs = _read_vis(vis_root)
+    videos = glob.glob(vis_root + ".*")
+    n_video = _video_frames(videos[0]) if len(videos) == 1 else 0
+    cli_ok = (proc.returncode == 0 and sorted(frames) == test_ids
+              and len(test_ids) == N_TEST and len(dirs) == n_batches
+              and n_video == N_TEST)
+    emit(check="nlt_test_cli", rc=proc.returncode, step=best,
+         batch_dirs=dirs, frames=len(frames), ids_equal=sorted(frames) ==
+         test_ids, video=os.path.basename(videos[0]) if videos else None,
+         video_frames=n_video, seconds=time.perf_counter() - t0,
+         stderr_tail=proc.stderr[-800:] if proc.returncode else "",
+         ok=bool(cli_ok))
+    ok &= cli_ok
+    shutil.rmtree(vis_test, ignore_errors=True)
+
+    # In this process, counted (the main path), then the plain versions.
+    runs = {}
+    for path in ("kernels", "plain"):
+        ctx = plain_ops() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            video, feat_l, all_l, clock = run_nlt_test(ckpt)
+        runs[path] = _read_vis(vis_root)[0]
+        n_video = _video_frames(video)
+        shutil.rmtree(vis_test, ignore_errors=True)
+        want = {k: OBS_LAUNCHES[k] + QUERY_LAUNCHES[k] * n_batches
+                for k in QUERY_LAUNCHES}
+        if path == "kernels":
+            nlt_test_launches = all_l
+            run_ok = (feat_l == OBS_LAUNCHES and all_l == want
+                      and sorted(runs[path]) == test_ids
+                      and n_video == N_TEST)
+        else:
+            run_ok = sum(all_l.values()) == 0 and sorted(runs[path]) == \
+                test_ids
+        emit(phase="nlt_test", path=path, card=card, batches=clock.get(
+             "batches"), launches_extract_feat=feat_l, launches=all_l,
+             launches_expected=want if path == "kernels" else 0,
+             infer_s=clock.get("infer_s"),
+             s_per_test_batch=clock["infer_s"] / max(clock["batches"], 1),
+             vis_write_share_of_infer=clock["vis_s"] / clock["infer_s"],
+             ok=bool(run_ok))
+        ok &= run_ok
+    kern, plain = runs["kernels"], runs["plain"]
+    lsb = max((int(np.abs(kern[i][0].astype(int)
+                          - plain[i][0].astype(int)).max())
+               for i in kern if i in plain), default=255)
+    meta_eq = sorted(kern) == sorted(plain) and all(
+        kern[i][1] == plain[i][1] for i in kern)
+    emit(check="nlt_test_kernels_vs_plain", frames=len(kern), max_lsb=lsb,
+         lsb_tol=1, metadata_equal=meta_eq, ok=bool(lsb <= 1 and meta_eq))
+    ok &= lsb <= 1 and meta_eq
+
+    # Server.predict(ids=) on the device input cache, bs 1 and 4.
+    server = Server(ckpt, step="best", config=cfg, pack="uint8")
+    server.precompute_obs()  # the config's training split
+    batches = list(test_set.iterate(seed=0, drop_remainder=False))
+    ok &= server._feat_agg is not None and [
+        len(b["id"]) for b in batches] == [4, 4, 1]
+    cache = server._input_cache
+    cached_launches = {k: 0 for k in QUERY_LAUNCHES}
+    for bs in (1, 4):
+        req, ids = _host(batches[0], bs)
+        other, _ = _host(batches[1], bs)
+        server.invalidate()
+        streamed = server.predict(req)
+        h0, m0 = cache.hits, cache.misses
+        _reset_launches()
+        first = server.predict(req, ids=ids)
+        missed = (cache.hits - h0, cache.misses - m0) == (0, bs)
+        again = server.predict(req, ids=ids)
+        hit = (cache.hits - h0, cache.misses - m0) == (bs, bs)
+        two = dict(fs.LAUNCHES)
+        for k in cached_launches:
+            cached_launches[k] += two[k]
+        launches_ok = two == {k: 2 * v for k, v in QUERY_LAUNCHES.items()}
+        stale = server.predict(other, ids=ids)  # the cached content wins
+        server.invalidate(ids)
+        fresh = server.predict(other, ids=ids)
+        new_ok = (_bit_equal(stale, streamed)
+                  and _bit_equal(fresh, server.predict(other))
+                  and not _bit_equal(fresh, streamed))
+        c_ok = (missed and hit and launches_ok and new_ok
+                and _bit_equal(first, streamed)
+                and _bit_equal(again, streamed))
+        # Uploaded against cached, in turns: device profile and latency.
+        server.invalidate(ids)
+        profiles, lats = {}, {}
+        for path in ("uploaded", "cached", "cached", "uploaded"):
+            use = ids if path == "cached" else None
+            cats = profile_requests(server, req, ids=use,
+                                    label="serve_%s_bs%d" % (path, bs))
+            profiles.setdefault(path, []).append(
+                (sum(cats.values()), cats.get("memcpy htod", 0.0)))
+            lats.setdefault(path, []).append(
+                server.benchmark(req, n=20, ids=use)["latency_s"] * 1e3)
+        no_htod = all(htod == 0.0 for _, htod in profiles["cached"])
+        traced = all(dev > 0 for v in profiles.values() for dev, _ in v)
+        emit(check="serve_cached", bs=bs, card=card, first_call_misses=missed,
+             repeat_hits_every_row=hit, bit_equal_to_uploaded=_bit_equal(
+                 first, streamed) and _bit_equal(again, streamed),
+             new_content_after_invalidate=new_ok,
+             launches_two_requests=two,
+             device_ms={p: [d for d, _ in v] for p, v in profiles.items()},
+             memcpy_htod_ms={p: [h for _, h in v]
+                             for p, v in profiles.items()},
+             latency_ms=lats, cache=cache.stats(),
+             ok=bool(c_ok and no_htod and traced))
+        ok &= c_ok and no_htod and traced
+
+    # The serve CLI: benchmark stats, then an export bundle of bs 1 and 4
+    # served by ExportedServer against the live server.
+    work = os.path.dirname(main_out)
+    stats = serve_mod.main(["--ckpt", ckpt, "--step", "best", "--bs", "1",
+                            "--pack", "uint8"])
+    stats_ok = sorted(stats) == ["cached", "streamed"] and all(
+        v["latency_s"] > 0 for v in stats.values())
+    emit(check="serve_cli", card=card, bs=1, pack="uint8",
+         streamed_latency_ms=stats["streamed"]["latency_s"] * 1e3,
+         cached_latency_ms=stats["cached"]["latency_s"] * 1e3,
+         streamed_fps=stats["streamed"]["fps"],
+         cached_fps=stats["cached"]["fps"], ok=bool(stats_ok))
+    ok &= stats_ok
+    bundle = os.path.join(work, "serve.nltx")
+    t0 = time.perf_counter()
+    serve_mod.main(["--ckpt", ckpt, "--step", "best", "--pack", "uint8",
+                    "--export", bundle, "--export_bs", "1,4"])
+    export_s = time.perf_counter() - t0
+    exported = serve_mod.ExportedServer(bundle)
+    export_launches = {k: 0 for k in QUERY_LAUNCHES}
+    e_ok = exported.batch_sizes == [1, 4]
+    for bs in (1, 4):
+        req, _ = _host(batches[0], bs)
+        _reset_launches()
+        got = exported.predict(req)
+        per_request = dict(fs.LAUNCHES)
+        for k in export_launches:
+            export_launches[k] += per_request[k]
+        want = server.predict(req)
+        equal = _bit_equal(got, want)
+        lats, profiles = {}, {}
+        for path, srv in (("live", server), ("exported", exported),
+                          ("exported", exported), ("live", server)):
+            lats.setdefault(path, []).append(
+                _median_latency_ms(srv.predict, req))
+            profiles.setdefault(path, []).append(sum(profile_requests(
+                srv, req, label="%s_bs%d" % (path, bs)).values()))
+        emit(check="exported_vs_live", bs=bs, card=card, bit_equal=equal,
+             launches_per_request=per_request, latency_ms=lats,
+             device_ms=profiles, ok=bool(equal
+                                         and per_request == QUERY_LAUNCHES))
+        e_ok &= equal and per_request == QUERY_LAUNCHES
+    try:
+        exported.predict(_host(batches[0], 2)[0])
+        refused = False
+    except ValueError:
+        refused = True
+    emit(check="exported_bundle", bytes=os.path.getsize(bundle),
+         export_s=export_s, batch_sizes=exported.batch_sizes,
+         refuses_bs2=refused, ok=bool(e_ok and refused))
+    ok &= e_ok and refused
+    return bool(ok), {"nlt_test": nlt_test_launches,
+                      "serve_cached": cached_launches,
+                      "exported": export_launches}
 
 
 def main(argv=None):
@@ -1903,6 +2260,24 @@ def main(argv=None):
             emit(phase="serving_benchmark", path=name,
                  bs=int(req["base"].shape[0]), pack="uint8",
                  latency_ms=stats["latency_s"] * 1e3, fps=stats["fps"])
+    # The stage ops' dispatch: through the registered custom ops (the
+    # port's path) against a direct ctypes launch, in turns; bs-1 latency
+    # and the host time of one stage call (a tiny stage, so the host, not
+    # the device, sets the pace of 500 calls queued back to back).
+    tiny = random_stage(1, 4, 4, 16, 16, torch.float32, seed=5)
+    for d in ("direct", "op", "library", "library", "op", "direct"):
+        with stage_dispatch(d):
+            stats = server.benchmark(reqs1[0], n=20)
+            fs.contract_stage(*tiny)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fs.contract_stage(*tiny)
+            host_us = (time.perf_counter() - t0) / 500 * 1e6
+            torch.cuda.synchronize()
+        emit(phase="serving_dispatch", dispatch=d, bs=1, pack="uint8",
+             latency_ms=stats["latency_s"] * 1e3, fps=stats["fps"],
+             stage_call_host_us=host_us, stage_x=list(tiny[0].shape))
 
     # 6. Training: the flagship recipe's steps.
     t0 = time.perf_counter()
@@ -1917,10 +2292,19 @@ def main(argv=None):
                         "nlt_tpu_torch", "_build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        tv_ok, tv_launches = trainvali_phase(work, card)
+        tv_ok, tv_launches, main_out = trainvali_phase(work, card)
+        ok &= tv_ok
+
+        # 8. Test-time inference (nlt_tpu_torch.nlt_test) and the rest of
+        # serving (input cache, CLI, export) on the main run's checkpoint.
+        t0 = time.perf_counter()
+        inf_ok, inf_launches = (inference_phase(main_out, card)
+                                if main_out else (False, {}))
+        emit(phase="inference", ok=bool(inf_ok),
+             seconds=time.perf_counter() - t0)
+        ok &= inf_ok
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    ok &= tv_ok
 
     kernels = []
     for kind in KERNELS:
@@ -1931,6 +2315,7 @@ def main(argv=None):
         by_path = {"serve": launches.get(kind, 0),
                    "train": train_launches.get(kind, 0),
                    "trainvali": tv_launches.get(kind, 0)}
+        by_path.update({p: v.get(kind, 0) for p, v in inf_launches.items()})
         kernels.append({
             "name": kind, "route": "cuda", "source": SOURCES[kind],
             "replaces": REPLACES[kind], "launches": sum(by_path.values()),
@@ -1945,14 +2330,17 @@ def main(argv=None):
         ok &= bool(recs)
         if kind != "conv2x2s2_lrelu":  # on no path, as in nlt_tpu
             ok &= train_launches[kind] > 0 and tv_launches.get(kind, 0) > 0
+        if kind in QUERY_LAUNCHES:  # the inference paths' stages
+            ok &= all(v.get(kind, 0) > 0 for v in inf_launches.values())
     emit(phase="summary", ok=bool(ok),
          note="kernel ms/plain_ms/bound_ms/library_ms: contract/expand "
               "summed over the stages of one bs-1 request of the serving "
               "path; scatter_add_rows: the one launch of a bs-4 training "
               "step; conv2x2s2_lrelu: summed over nlt_tpu's three shapes "
               "at bs 4 (no path runs it). launches: the serving requests, "
-              "the training steps and the trainvali run, each counted "
-              "from 0")
+              "the training steps, the trainvali run, the nlt_test run, "
+              "the cached requests and the exported requests, each "
+              "counted from 0")
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1

@@ -7,16 +7,20 @@ activations and HWIO conv kernels, and the params tree keeps its
 nesting, so ``convert.params_from_jax`` is a near-identity.
 
 The package imports torch and never jax or nlt_tpu. Entry points
-(``serve.Server``, ``models.nlt.Model``) run on ``device="cuda"``
+(``trainvali``, ``nlt_test``, ``serve`` and its ``Server`` and
+``ExportedServer``, ``models.nlt.Model``) run on ``device="cuda"``
 unless the caller names another device; without CUDA they raise.
 
-Ported so far: the serving path (``serve.Server`` over
-``models.nlt.Model``) and the training step of the flagship recipe
-(``parallel/train.py``: barron + LPIPS, AMSGrad, cached statics), with
-the fused U-Net stage kernels of ``ops/fused_stage.py`` and the
-resampler-backward scatter of ``ops/scatter.py`` written in CUDA C++
-(``csrc/fused_stage.cu`` and the split routes ``csrc/contract_split.cu``
-and ``csrc/expand_split.cu``; ``csrc/scatter.cu``).
+Ported so far: serving (``serve.Server`` over ``models.nlt.Model``,
+with the device input cache and ``torch.export`` bundles), test-time
+inference (``nlt_test``), the training step of the flagship recipe
+(``parallel/train.py``: barron + LPIPS, AMSGrad, cached statics) and
+the training entry point (``trainvali``), with the fused U-Net stage
+kernels of ``ops/fused_stage.py``, the resampler-backward scatter of
+``ops/scatter.py`` and the conv stage of ``ops/conv_stage.py`` written
+in CUDA C++ (``csrc/fused_stage.cu`` and the split routes
+``csrc/contract_split.cu`` and ``csrc/expand_split.cu``;
+``csrc/scatter.cu``; ``csrc/conv_stage.cu``).
 """
 
 import torch

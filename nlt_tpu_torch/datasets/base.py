@@ -336,7 +336,7 @@ class Dataset:
         Several processes: pass (rank, world size) so each loads a
         disjoint slice of each (seed-synchronized) global shuffle and a
         1/num_shards-sized local batch (the port drives one process;
-        distribution is ROADMAP queue 1, item 6).
+        distribution is ROADMAP queue 1, item 5).
         """
         ids = sorted(self.files)
         if self.mode == "train":

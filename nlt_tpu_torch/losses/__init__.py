@@ -9,8 +9,9 @@ Every loss is an object with
 Stateful losses carry their state explicitly (Barron's latent alpha and
 scale when trainable, LPIPS's network weights), so it lives in the
 params tree under ``params['loss']``. SSIM and E-LPIPS are not ported
-yet (ROADMAP.md, queue 1); building them raises. The Barron and LPIPS
-forwards are marked for the profiler (``nlt::barron``, ``nlt::lpips``).
+yet (ROADMAP.md, queue 1, item 4); building them raises. The Barron and
+LPIPS forwards are marked for the profiler (``nlt::barron``,
+``nlt::lpips``).
 """
 
 import torch
@@ -23,8 +24,8 @@ from . import lpips as _lpips
 
 logger = logutil.Logger(loggee="losses")
 
-_NOT_PORTED = ("%s is not ported to nlt_tpu_torch yet (ROADMAP.md, queue 1: "
-               "what the training slice left out)")
+_NOT_PORTED = ("%s is not ported to nlt_tpu_torch yet (ROADMAP.md, queue 1, "
+               "item 4: the rest of training)")
 
 
 def _reduce(loss, keep_batch):

@@ -1,6 +1,6 @@
 """Image quality metrics on the host (port of nlt_tpu/metrics.py: PSNR,
 which the vis metadata and ``psnr_vali`` use). SSIM and LPIPS as
-metrics wait with ``nlt_test.infer`` (ROADMAP.md, queue 1)."""
+metrics wait for ROADMAP.md queue 1, item 5."""
 
 import numpy as np
 

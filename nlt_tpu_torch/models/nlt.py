@@ -25,15 +25,15 @@ named outputs (a test-mode server never runs the fg/base resamples).
 Concatenation promotes dtypes as jnp.concatenate does: a float32 obs
 pyramid joined to a bfloat16 query feature map continues in float32.
 
-The losses live in ``models/base.py``. The host-side visualization of
-train/vali batches (``vis_batch``, ``compile_batch_vis``'s HTML, the
-``psnr`` metric) is nlt_tpu's; the test-mode video waits for
-``nlt_test.infer`` (ROADMAP.md, queue 1, item 5).
+The losses live in ``models/base.py``. The host-side visualization
+(``vis_batch``, ``compile_batch_vis``: the HTML gallery of train/vali
+batches, the video of the test views that ``nlt_test.infer`` wrote; the
+``psnr`` metric) is nlt_tpu's.
 """
 
 import os
 from glob import glob
-from os.path import join
+from os.path import exists, join
 
 import numpy as np
 import torch
@@ -45,10 +45,13 @@ from ..networks import convnet
 from ..ops import resample as resample_mod
 from ..utils import img as imgutil
 from ..utils import io as ioutil
+from ..utils import logging as logutil
 from ..utils.tree import tree_map
 from ..vis import html as htmlutil
 from ..vis import video as videoutil
 from .base import Model as BaseModel
+
+logger = logutil.Logger(loggee="models/nlt")
 
 # Channel counts of the fixed inputs: query = base(3) + cvis(1) + lvis(1);
 # obs = nn_rgb - nn_base (3).
@@ -250,7 +253,7 @@ class Model(BaseModel):
         if self.config.get_float("take_compact_frac", 0.0) > 0:
             raise NotImplementedError(
                 "compact resample plans (take_compact_frac) are not ported "
-                "(ROADMAP.md, queue 1)")
+                "(ROADMAP.md, queue 1, item 4)")
         batch = normalize_batch(batch)
         warp = self._scale_warp(batch["warp"])
         h, w = batch["base"].shape[1:3]
@@ -455,17 +458,16 @@ class Model(BaseModel):
             ioutil.write_pickle(raw, dump_raw_to)
 
     def compile_batch_vis(self, batch_vis_dirs, outpref, mode, fps=6):
-        """HTML gallery for train/vali; the test-mode video waits for
-        ``nlt_test.infer`` (ROADMAP.md, queue 1, item 5)."""
+        """HTML gallery for train/vali, a video of the predictions for
+        test (an animated image where no video writer is installed)."""
         self._validate_mode(mode)
-        if mode == "test":
-            raise NotImplementedError(
-                "the test-mode video is not ported yet (ROADMAP.md, "
-                "queue 1, item 5)")
-        outpath = outpref + ".html"
-        self._compile_into_webpage(batch_vis_dirs, outpath,
-                                   title="NLT (%s)" % mode)
-        return outpath
+        if mode in ("train", "vali"):
+            outpath = outpref + ".html"
+            self._compile_into_webpage(batch_vis_dirs, outpath,
+                                       title="NLT (%s)" % mode)
+            return outpath
+        return self._compile_into_video(batch_vis_dirs, outpref + ".mp4",
+                                        fps=fps)
 
     @staticmethod
     def _compile_into_webpage(batch_dirs, out_html, title=None):
@@ -490,3 +492,22 @@ class Model(BaseModel):
         for r, rc, rt in zip(rows, caps, types):
             table.add_row(r, rt, captions=rc)
         page.save(out_html)
+
+    @staticmethod
+    def _compile_into_video(batch_dirs, out_mp4, fps=12):
+        """Each batch dir's *_pred.png frames, ordered by their metadata
+        id, written as one video; returns the path written."""
+        frames = {}
+        for batch_dir in batch_dirs:
+            for metadata_path in glob(join(batch_dir,
+                                           "[0-9]*_metadata.json")):
+                prefix = metadata_path[:-len("metadata.json")]
+                pred_path = prefix + "pred.png"
+                if not exists(pred_path):
+                    logger.warn("Skipping because of missing file:\n\t%s",
+                                pred_path)
+                    continue
+                metadata = ioutil.read_json(metadata_path)
+                frames[metadata["id"]] = ioutil.load_img(pred_path)
+        frames_sorted = [frames[k] for k in sorted(frames)]
+        return ioutil.write_video(frames_sorted, out_mp4, fps=fps)

@@ -53,6 +53,13 @@ On a CPU tensor each op runs its plain PyTorch version
 (``contract_stage_ref`` / ``expand_stage_ref``, straight ports of the
 JAX references); on a CUDA tensor it launches its kernel or raises.
 ``LAUNCHES`` counts kernel launches per op (one per call, either route).
+An inference call (no gradient, y2 alone) goes through the op
+registered with ``torch.library`` (``OPS``:
+``nlt_tpu_torch::contract_stage`` / ``::expand_stage``): its CUDA
+kernel is the launch above, its CPU kernel the plain version, and its
+fake gives y2's shape to a tracer, so ``torch.export`` records the op
+as one opaque node that the exported program launches as the eager
+server does (the ctypes launch itself cannot be traced).
 
 Gradients: when an input requires grad, the op runs as the
 ``ContractStage`` / ``ExpandStage`` autograd Function, whose forward is
@@ -715,18 +722,64 @@ class ExpandStage(torch.autograd.Function):
         return expand_stage_bwd(*ctx.saved_tensors, g, ctx.slope) + (None,)
 
 
+# ---------------------------------------------------------------------------
+# Inference: each op registered with torch.library as an opaque custom op
+# (nlt_tpu_torch::contract_stage / ::expand_stage), so the eager server
+# and a torch.export'ed program run one code path. The CUDA
+# implementation launches the kernel or raises; the CPU one is the plain
+# version; the fake gives y2's shape, dtype and device to a tracer and
+# launches nothing (LAUNCHES counts real launches only).
+# ---------------------------------------------------------------------------
+
+
+def _out_shape(kind, x, w1):
+    n, h, w, _ = x.shape
+    if kind == "contract_stage":
+        return (n, h // 2, w // 2, w1.shape[3])
+    return (n, 2 * h, 2 * w, w1.shape[3])
+
+
+def _register(kind):
+    """The custom op of `kind`, with its CUDA, CPU and fake kernels."""
+
+    @torch.library.custom_op("nlt_tpu_torch::" + kind, mutates_args=(),
+                             device_types="cuda")
+    def op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+           w2: torch.Tensor, b2: torch.Tensor, slope: float) -> torch.Tensor:
+        _check(kind, x, w1, b1, w2, b2)
+        return _launch(kind, x, w1, b1, w2, b2, slope, False)
+
+    @op.register_kernel("cpu")
+    def _(x, w1, b1, w2, b2, slope):
+        _check(kind, x, w1, b1, w2, b2)
+        return _REFS[kind](x, w1, b1, w2, b2, slope)[0]
+
+    @op.register_fake
+    def _(x, w1, b1, w2, b2, slope):
+        _check(kind, x, w1, b1, w2, b2)
+        return x.new_empty(_out_shape(kind, x, w1))
+
+    return op
+
+
+OPS = {kind: _register(kind) for kind in _REFS}
+
+
 def _stage(fn, kind, x, w1, b1, w2, b2, slope, return_y1):
-    _check(kind, x, w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
+        _check(kind, x, w1, b1, w2, b2)
         if return_y1:
             raise ValueError("%s: return_y1 is for inference; y1 carries no "
                              "gradient" % kind)
         return fn.apply(x, w1, b1, w2, b2, slope)
+    if not return_y1:
+        return OPS[kind](x, w1, b1, w2, b2, float(slope))
+    # y1 too: eager only (the custom ops return y2 alone).
+    _check(kind, x, w1, b1, w2, b2)
     if x.device.type == "cpu":
-        y2, y1 = _REFS[kind](x, w1, b1, w2, b2, slope)
-        return (y2, y1) if return_y1 else y2
-    return _launch(kind, x, w1, b1, w2, b2, slope, return_y1)
+        return _REFS[kind](x, w1, b1, w2, b2, slope)
+    return _launch(kind, x, w1, b1, w2, b2, slope, True)
 
 
 def contract_stage(x, w1, b1, w2, b2, slope=0.3, return_y1=False):

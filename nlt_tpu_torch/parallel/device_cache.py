@@ -16,7 +16,7 @@ placement of an uncached batch.
 Capacity-capped (``cache_device_mb``): once the cap is reached further
 examples stream as before. The multi-host half of nlt_tpu's cache
 (``make_global_batch``) waits for distribution (ROADMAP.md, queue 1,
-item 6).
+item 5).
 """
 
 import numpy as np

@@ -15,8 +15,8 @@ get no gradient; the optimizer walks them with zero gradients, as optax
 does. The optimizer's work is marked for the profiler (``nlt::optimizer``).
 
 Not ported yet (they raise): BatchNorm in training mode (norm = batch)
-and remat (ROADMAP.md, queue 1). Distribution over several devices is
-ROADMAP queue 1, item 6.
+and remat (ROADMAP.md, queue 1, item 4). Distribution over several
+devices is ROADMAP queue 1, item 5.
 """
 
 import numpy as np
@@ -138,10 +138,10 @@ def _check_trainable(model):
     if norm is not None and str(norm).lower() == "batch":
         raise NotImplementedError(
             "BatchNorm in training mode (norm = batch) is not ported yet "
-            "(ROADMAP.md, queue 1)")
+            "(ROADMAP.md, queue 1, item 4)")
     if model.config.get_bool("remat", False):
         raise NotImplementedError("remat is not ported yet (ROADMAP.md, "
-                                  "queue 1)")
+                                  "queue 1, item 4)")
 
 
 def make_train_step(model, tx, with_vis=True, cached_statics=False,

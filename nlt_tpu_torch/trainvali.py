@@ -31,7 +31,7 @@ The port's ways:
 
 A bare ``--config`` name is read from nlt_tpu's config directory, by
 path: the .ini files are shared data. Several devices (the mesh, the
-multi-host flags, ``--n_tile > 1``) wait for ROADMAP.md queue 1, item 6.
+multi-host flags, ``--n_tile > 1``) wait for ROADMAP.md queue 1, item 5.
 """
 
 import argparse
@@ -188,7 +188,7 @@ def _check_single_device(args):
             or (args.num_processes or 1) > 1 or args.process_id):
         raise NotImplementedError(
             "several devices (mesh, --n_tile > 1, multi-host flags) are not "
-            "ported yet (ROADMAP.md, queue 1, item 6)")
+            "ported yet (ROADMAP.md, queue 1, item 5)")
 
 
 class VisStager:

@@ -671,3 +671,46 @@ def test_build_hash_covers_headers(monkeypatch, tmp_path):
     assert lib2 != lib
     (tmp_path / "a.cu").write_text('#include "h.cuh"\n// edited\n')
     assert _build._target("a")[1] not in (lib, lib2)
+
+
+@pytest.mark.parametrize("kind,shape,o", [
+    ("contract", (2, 8, 6, 4), 6), ("expand", (2, 4, 3, 6), 5)])
+def test_custom_op_opcheck(rng, kind, shape, o):
+    """The registered inference op passes torch.library.opcheck (schema,
+    autograd registration, the fake against the CPU kernel, AOT
+    dispatch), and an inference call of the public op goes through it:
+    its CPU kernel is the plain version's y2, bit for bit."""
+    args = [torch.from_numpy(a) for a in _args(rng, shape, o)]
+    op = tfs.OPS[kind + "_stage"]
+    assert str(op._qualname) == "nlt_tpu_torch::%s_stage" % kind
+    torch.library.opcheck(op, tuple(args) + (0.3,))
+    want = getattr(tfs, kind + "_stage_ref")(*args, 0.3)[0]
+    torch.testing.assert_close(op(*args, 0.3), want, rtol=0, atol=0)
+    seen = []
+    orig = tfs.OPS[kind + "_stage"]
+    tfs.OPS[kind + "_stage"] = lambda *a: seen.append(a) or orig(*a)
+    try:
+        with torch.no_grad():
+            got = getattr(tfs, kind + "_stage")(*args, 0.3)
+    finally:
+        tfs.OPS[kind + "_stage"] = orig
+    assert len(seen) == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_custom_op_fake_launches_nothing(rng):
+    """Tracing with fake tensors (what torch.export does) runs the fake
+    kernel: y2's shape, dtype and device, no launch counted; the fake
+    checks shapes as the op does."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    tfs.reset_launches()
+    with FakeTensorMode() as mode:
+        args = [mode.from_tensor(torch.from_numpy(a))
+                for a in _args(rng, (1, 8, 8, 4), 6)]
+        y = tfs.OPS["contract_stage"](*args, 0.3)
+        assert tuple(y.shape) == (1, 4, 4, 6) and y.dtype == torch.float32
+        with pytest.raises(ValueError, match="w1 must be"):
+            tfs.OPS["expand_stage"](args[0], args[3], args[2], args[3],
+                                    args[4], 0.3)
+    assert tfs.LAUNCHES == {"contract_stage": 0, "expand_stage": 0}

@@ -275,9 +275,9 @@ def test_bare_config_name_reads_nlt_tpu_config_dir():
 def test_several_devices_not_ported(tmp_path, scene_root):
     ini = _ini(str(tmp_path / "t.ini"),
                _cfg(scene_root, str(tmp_path / "o")), TConfig)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         ttrainvali.main(["--config", ini, "--device", "cpu", "--n_tile",
                          "2"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         ttrainvali.main(["--config", ini, "--device", "cpu",
                          "--num_processes", "2"])
