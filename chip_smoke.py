@@ -90,6 +90,25 @@ Phases, each of which must pass for the run to exit 0:
    bundle of bs 1 and 4) and ExportedServer on that bundle (bit-equal to
    the live Server, 6 + 6 launches a request, bs 2 refused; latency and
    device ms against the live server, in turns).
+9. The rest of training at the flagship training width (phase 6's
+   recipe, one key changed at a time), each option's steps with the
+   launch counters reset: (a) loss = barron,1e+0elpips and
+   barron,1e+0lpips,1e+0ssim (a warm-up and 5 timed steps, 12 + 6 + 1
+   launches each; the same seed twice gives the same losses and draws,
+   each step draws its own transform; kernels against plain with the
+   same draws, bf16, and float32 for E-LPIPS); (b) norm = batch, float32
+   and bf16 (0 + 0 + 1 launches: the norms turn the fused stages off;
+   the moving statistics move and equal the plain path's after a step;
+   an eval step runs on them; nan_guard on a poisoned batch keeps them);
+   (c) norm = layer, instance, pixel (kernels against plain losses); (d)
+   remat = True (launches a step as counted; loss and gradients against
+   the step without remat, float32 and bf16; peak memory with and
+   without); (e) one trainvali epoch on phase 7's scene from an .ini
+   with norm = batch and loss = barron,1e+0elpips,1e+0ssim (launches;
+   the checkpoint's moving statistics moved; restore_model and a Server
+   request answer on them). Step times in turns against the barron +
+   LPIPS step, and a profiled step (device idle share) for (a), (b) and
+   (d).
 
 Prints the card's name and power limit, one JSON line per check and
 timing, a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
@@ -1195,7 +1214,7 @@ def _train_category(name):
     return None
 
 
-def profile_train_step(step, state, batch, statics):
+def profile_train_step(step, state, batch, statics, label="barron_lpips"):
     """Device time of one step by category (torch.profiler). The three
     kernels are found by name; every other kernel goes to the first
     profiler range above the op that launched it that names a category
@@ -1244,13 +1263,14 @@ def profile_train_step(step, state, batch, statics):
                 key = "%s <- %s" % (k.name[:60], ev.name)
                 rest[key] = rest.get(key, 0.0) + k.duration / 1e3
     if total == 0:
-        emit(phase="train_profile", wall_ms_per_step=wall_ms,
+        emit(phase="train_profile", label=label, wall_ms_per_step=wall_ms,
              device_ms_per_step="not measured",
              note="torch.profiler recorded no device time")
         return
     cats["other (loss backward, resample, elementwise, copies)"] = max(
         0.0, total - sum(cats.values()))
-    emit(phase="train_profile", bs=TRAIN_BS, wall_ms_per_step=wall_ms,
+    emit(phase="train_profile", label=label, bs=TRAIN_BS,
+         wall_ms_per_step=wall_ms,
          device_ms_per_step=total, host_idle_share=1 - total / wall_ms,
          by_category_ms=dict(sorted(cats.items(), key=lambda kv: -kv[1])),
          top_other_kernels_ms=dict(sorted(
@@ -2114,6 +2134,447 @@ def inference_phase(main_out, card):
                       "exported": export_launches}
 
 
+# ---------------------------------------------------------------------------
+# 9. The rest of training: E-LPIPS and SSIM, BatchNorm and the other
+#    norms, remat, and a trainvali epoch with them
+# ---------------------------------------------------------------------------
+
+# A step of a norm = batch (layer, instance, pixel) net runs no fused
+# stage (nlt_tpu turns them off for any norm): K1 only, in the
+# resampler's backward.
+NORM_LAUNCHES = {"contract_stage": 0, "expand_stage": 0,
+                 "scatter_add_rows": 1, "conv2x2s2_lrelu": 0}
+# BN moving statistics, kernels path against plain path after one step,
+# as a fraction of their scale (at least 1): the forward that records
+# them runs no kernel on this path, so they should agree exactly; 1e-5.
+BN_STATS_TOL = 1e-5
+# remat against the same step without it, float32, relative: the
+# recompute reruns the stage kernels on the same inputs (bit-equal), and
+# K1's float atomics add in no fixed order (~1e-7): 1e-5.
+REMAT_TOL = 1e-5
+
+
+def options_cfg(compute_dtype="bfloat16", **over):
+    """train_cfg() with some keys changed."""
+    cfg = train_cfg(compute_dtype)
+    for k, v in over.items():
+        cfg.set(k, str(v))
+    return cfg
+
+
+def _moving(params):
+    """{path: tensor} of the BN moving statistics in a params tree."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if isinstance(v, torch.Tensor):
+                    if k.startswith("moving_"):
+                        out[path + (k,)] = v
+                else:
+                    walk(v, path + (k,))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+
+    walk(params, ())
+    return out
+
+
+def _reset_moving(params):
+    """params with every BN moving statistic at its init (0 / 1)."""
+    if isinstance(params, dict):
+        return {k: (torch.full_like(v, 0.0 if k.startswith("moving_mean")
+                                    else 1.0)
+                    if k.startswith("moving_") else _reset_moving(v))
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_reset_moving(v) for v in params]
+    return params
+
+
+def _stats_err(a, b):
+    """Largest |a - b| over BN statistics, as a fraction of b's scale."""
+    ma, mb = _moving(a), _moving(b)
+    assert sorted(ma) == sorted(mb)
+    return max((float((ma[k] - mb[k]).abs().max())
+                / max(1.0, float(mb[k].abs().max())) for k in mb),
+               default=0.0)
+
+
+class Run9:
+    """One option's model, optimizer, fresh state, batches and their
+    statics (the recipe's cached-statics step)."""
+
+    def __init__(self, cfg, n_batches):
+        self.model = Model(cfg, device="cuda")
+        self.tx = train_mod.make_optimizer(cfg.get_float("lr"),
+                                           cfg.get_float("mgm"))
+        self.state0 = train_mod.init_state(self.model, self.tx,
+                                           torch.Generator().manual_seed(0))
+        self.batches = [_train_batch(30 + i) for i in range(n_batches)]
+        extract = train_mod.make_static_extractor(self.model)
+        self.statics = [extract(self.state0["params"], b)
+                        for b in self.batches]
+        self.step = train_mod.make_train_step(
+            self.model, self.tx, cached_statics=True, with_vis=False)
+
+    def args(self, i):
+        return self.batches[i], self.statics[i]
+
+    def drive(self, label, counted=True):
+        """All batches from state0 (the first one the warm-up), each
+        step's launches and time; the counters reset just before when
+        counted (the option's main path). Returns (state after the
+        first step, last state, record)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if counted:
+            _reset_launches()
+        state, first, per_step, times, losses = self.state0, None, [], [], []
+        for i in range(len(self.batches)):
+            before = _launches()
+            t = time.perf_counter()
+            state, loss = self.step(state, *self.args(i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss))
+            per_step.append({k: v - before[k]
+                             for k, v in _launches().items()})
+            first = first or state
+        rec = {"label": label, "launches": _launches() if counted else None,
+               "per_step": per_step, "losses": losses, "warmup_ms": times[0],
+               "step_ms": times[1:],
+               "median_ms_per_step": float(np.median(times[1:]))
+               if len(times) > 1 else None,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        return first, state, rec
+
+
+def time_in_turns(fns, rounds=5):
+    """Host-clock ms of one call of each fn, in turns (the order reversed
+    every round), median per fn."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}, times
+
+
+def losses_phase(flag):
+    """(a) barron + E-LPIPS and barron + LPIPS + SSIM at the flagship
+    width. Returns (ok, {label: launches})."""
+    from nlt_tpu_torch import losses as losses_mod
+
+    ok, launches = True, {}
+    drawn = []
+    orig_draw = losses_mod.ELPIPS.draw
+
+    def recording_draw(self, generator, gt):
+        out = orig_draw(self, generator, gt)
+        drawn.append(out)
+        return out
+
+    losses_mod.ELPIPS.draw = recording_draw
+    try:
+        for name, loss in (("elpips", "barron,1e+0elpips"),
+                           ("ssim", "barron,1e+0lpips,1e+0ssim")):
+            run = Run9(options_cfg(loss=loss), TRAIN_STEPS + 1)
+            drawn.clear()
+            _, _, rec = run.drive("train_" + name)
+            launches["train_" + name] = rec["launches"]
+            main_draws = list(drawn)
+            step_ok = (all(p == TRAIN_LAUNCHES for p in rec["per_step"])
+                       and all(np.isfinite(rec["losses"])))
+            # The same seed twice: the same draws, and the same losses up
+            # to K1's atomic order (phase 7's repeat tolerance).
+            drawn.clear()
+            _, _, again = run.drive("repeat", counted=False)
+            repeat_rel = max(abs(a - b) / abs(b) for a, b in
+                             zip(again["losses"], rec["losses"]))
+            repeat_ok = repeat_rel <= TV_REPEAT_TOL and drawn == main_draws
+            fresh = (name != "elpips" or (
+                len(main_draws) == len(run.batches)
+                and len({repr(d) for d in main_draws}) == len(main_draws)))
+            emit(phase="train_options", option=name, loss=loss, bs=TRAIN_BS,
+                 steps=len(run.batches), launches=rec["launches"],
+                 per_step=rec["per_step"][0],
+                 all_steps_12_6_1=step_ok, losses=rec["losses"],
+                 warmup_ms=rec["warmup_ms"], step_ms=rec["step_ms"],
+                 median_ms_per_step=rec["median_ms_per_step"],
+                 peak_mem_bytes=rec["peak_mem_bytes"],
+                 same_seed_same_losses=repeat_ok,
+                 repeat_max_rel_diff=repeat_rel, repeat_rtol=TV_REPEAT_TOL,
+                 draws_per_step_distinct=fresh,
+                 draws=[list(d[0]) for d in main_draws[:3]],
+                 ok=bool(step_ok and repeat_ok and fresh))
+            ok &= step_ok and repeat_ok and fresh
+            # Kernels against plain with the same draws (the generator
+            # is seeded from the step, and both paths start at step 0).
+            ok_b, _, _ = compare_steps(name + "_bfloat16", run.state0,
+                                       run.batches[:2], run.statics[:2],
+                                       run.model, run.tx, f32=False)
+            ok &= ok_b
+            if name == "elpips":
+                r32 = Run9(options_cfg("float32", loss=loss), 3)
+                ok_f, _, _ = compare_steps(name + "_float32", r32.state0,
+                                           r32.batches, r32.statics,
+                                           r32.model, r32.tx, f32=True)
+                ok &= ok_f
+                del r32
+            medians, times = time_in_turns({
+                "barron_lpips": lambda: flag.step(flag.state0, *flag.args(0)),
+                name: lambda: run.step(run.state0, *run.args(0))})
+            emit(phase="train_options_timing", option=name, bs=TRAIN_BS,
+                 median_ms=medians, step_ms=times)
+            profile_train_step(run.step, run.state0, run.batches[0],
+                               run.statics[0], label=name)
+            del run
+            torch.cuda.empty_cache()
+    finally:
+        losses_mod.ELPIPS.draw = orig_draw
+    return bool(ok), launches
+
+
+def norms_phase(flag):
+    """(b) norm = batch in float32 and bfloat16, (c) the layer, instance
+    and pixel norms. Returns (ok, {label: launches})."""
+    ok, launches = True, {}
+    for dtype in ("float32", "bfloat16"):
+        run = Run9(options_cfg(dtype, norm="batch"), 3)
+        label = "train_bn_" + ("f32" if dtype == "float32" else "bf16")
+        s1, _, rec = run.drive(label)
+        launches[label] = rec["launches"]
+        step_ok = (all(p == NORM_LAUNCHES for p in rec["per_step"])
+                   and all(np.isfinite(rec["losses"])))
+        m0, m1 = _moving(run.state0["params"]), _moving(s1["params"])
+        changed = bool(m0) and all(not torch.equal(m0[k], m1[k]) for k in m0)
+        # The plain path's first step from the same state.
+        with plain_ops():
+            p1, p_loss = run.step(run.state0, *run.args(0))
+        torch.cuda.synchronize()
+        stats_err = _stats_err(s1["params"], p1["params"])
+        gk = _grads(s1["opt_state"]["mu"])
+        gp = _grads(p1["opt_state"]["mu"])
+        grad_rel = _rel_l2(torch.cat([a.flatten() for a in gk]),
+                           torch.cat([b.flatten() for b in gp]))
+        loss_rel = abs(float(p_loss) - rec["losses"][0]) / abs(float(p_loss))
+        tol = 1e-4 if dtype == "float32" else 1e-2
+        plain_ok = (stats_err <= BN_STATS_TOL and grad_rel <= tol
+                    and loss_rel <= tol)
+        # Evaluation on the moving statistics.
+        ev = train_mod.make_eval_step(run.model)
+        b = run.batches[0]
+        e_moving = float(ev(s1, b)[0])
+        e_init = float(ev({"params": _reset_moving(s1["params"])}, b)[0])
+        eval_ok = np.isfinite(e_moving) and e_moving != e_init
+        # nan_guard on a poisoned batch keeps them.
+        bad = dict(b, base=torch.full_like(b["base"], float("nan")))
+        guarded = train_mod.make_train_step(run.model, run.tx,
+                                            nan_guard=True, with_vis=False)
+        g1, g_loss = guarded(s1, bad)
+        guard_ok = (not np.isfinite(float(g_loss))
+                    and _stats_err(g1["params"], s1["params"]) == 0.0
+                    and int(g1["step"]) == int(s1["step"]) + 1)
+        r_ok = step_ok and changed and plain_ok and eval_ok and guard_ok
+        emit(phase="train_options", option="norm_batch", dtype=dtype,
+             bs=TRAIN_BS, steps=len(run.batches), launches=rec["launches"],
+             per_step=rec["per_step"][0], all_steps_0_0_1=step_ok,
+             losses=rec["losses"], warmup_ms=rec["warmup_ms"],
+             step_ms=rec["step_ms"],
+             median_ms_per_step=rec["median_ms_per_step"],
+             peak_mem_bytes=rec["peak_mem_bytes"], moving_stats=len(m0),
+             moving_changed=changed, stats_kernels_vs_plain=stats_err,
+             stats_tol=BN_STATS_TOL, grad_rel_l2_vs_plain=grad_rel,
+             loss_rel_vs_plain=loss_rel, tol=tol, eval_loss=e_moving,
+             eval_loss_init_stats=e_init, nan_guard_keeps_stats=guard_ok,
+             ok=bool(r_ok))
+        ok &= r_ok
+        if dtype == "bfloat16":
+            medians, times = time_in_turns({
+                "barron_lpips": lambda: flag.step(flag.state0, *flag.args(0)),
+                "norm_batch": lambda: run.step(run.state0, *run.args(0))})
+            emit(phase="train_options_timing", option="norm_batch",
+                 bs=TRAIN_BS, median_ms=medians, step_ms=times)
+            profile_train_step(run.step, run.state0, run.batches[0],
+                               run.statics[0], label="norm_batch")
+        del run
+        torch.cuda.empty_cache()
+
+    for norm in ("layer", "instance", "pixel"):
+        run = Run9(options_cfg(norm=norm), 2)
+        label = "train_" + norm
+        _, _, rec = run.drive(label)
+        launches[label] = rec["launches"]
+        with plain_ops():
+            _, _, prec = run.drive("plain", counted=False)
+        close = all(abs(a - b) <= 1e-2 * abs(b)
+                    for a, b in zip(rec["losses"], prec["losses"]))
+        n_ok = (all(p == NORM_LAUNCHES for p in rec["per_step"])
+                and all(np.isfinite(rec["losses"])) and close)
+        emit(phase="train_options", option="norm_" + norm, dtype="bfloat16",
+             bs=TRAIN_BS, steps=len(run.batches), launches=rec["launches"],
+             per_step=rec["per_step"][0], losses=rec["losses"],
+             losses_plain=prec["losses"], rtol=1e-2,
+             step_ms=rec["step_ms"], ok=bool(n_ok))
+        ok &= n_ok
+        del run
+        torch.cuda.empty_cache()
+    return bool(ok), launches
+
+
+def remat_phase(flag):
+    """(d) remat on the fused flagship config: launches a step, the step
+    against the same step without remat, peak memory with and without.
+    Returns (ok, {label: launches})."""
+    ok = True
+    run = Run9(options_cfg(remat="true"), TRAIN_STEPS + 1)
+    _, _, rec = run.drive("train_remat")
+    fused_twice = all(p["contract_stage"] >= TRAIN_LAUNCHES["contract_stage"]
+                      and p["expand_stage"] >= TRAIN_LAUNCHES["expand_stage"]
+                      and p["scatter_add_rows"] == 1
+                      for p in rec["per_step"])
+    # Peak memory of one step, with and without remat (same state and
+    # batch, statics in place for both).
+    peaks = {}
+    for name, r in (("remat", run), ("no_remat", flag)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        r.step(r.state0, *r.args(0))
+        torch.cuda.synchronize()
+        peaks[name] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                       "above_start_bytes":
+                       torch.cuda.max_memory_allocated() - base}
+    # The step against the same step without remat (float32 and bf16).
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        a = Run9(options_cfg(dtype, remat="true"), 1)
+        b_model = Model(options_cfg(dtype), device="cuda")
+        b_step = train_mod.make_train_step(b_model, a.tx, cached_statics=True,
+                                           with_vis=False)
+        sa, la = a.step(a.state0, *a.args(0))
+        sb, lb = b_step(a.state0, *a.args(0))
+        torch.cuda.synchronize()
+        ga, gb = _grads(sa["opt_state"]["mu"]), _grads(sb["opt_state"]["mu"])
+        errs[dtype] = {
+            "loss_rel": abs(float(la) - float(lb)) / abs(float(lb)),
+            "grad_rel_l2": _rel_l2(torch.cat([x.flatten() for x in ga]),
+                                   torch.cat([x.flatten() for x in gb]))}
+        del a, b_model
+        torch.cuda.empty_cache()
+    cmp_ok = (errs["float32"]["loss_rel"] <= REMAT_TOL
+              and errs["float32"]["grad_rel_l2"] <= REMAT_TOL
+              and errs["bfloat16"]["loss_rel"] <= 1e-2
+              and errs["bfloat16"]["grad_rel_l2"] <= 1e-2)
+    r_ok = fused_twice and all(np.isfinite(rec["losses"])) and cmp_ok
+    emit(phase="train_options", option="remat", dtype="bfloat16",
+         bs=TRAIN_BS, steps=len(run.batches), launches=rec["launches"],
+         per_step=rec["per_step"][0], losses=rec["losses"],
+         warmup_ms=rec["warmup_ms"], step_ms=rec["step_ms"],
+         median_ms_per_step=rec["median_ms_per_step"], memory=peaks,
+         vs_no_remat=errs, tol_float32=REMAT_TOL, tol_bfloat16=1e-2,
+         ok=bool(r_ok))
+    ok &= r_ok
+    medians, times = time_in_turns({
+        "barron_lpips": lambda: flag.step(flag.state0, *flag.args(0)),
+        "remat": lambda: run.step(run.state0, *run.args(0))})
+    emit(phase="train_options_timing", option="remat", bs=TRAIN_BS,
+         median_ms=medians, step_ms=times)
+    profile_train_step(run.step, run.state0, run.batches[0], run.statics[0],
+                       label="remat")
+    launches = {"train_remat": rec["launches"]}
+    del run
+    torch.cuda.empty_cache()
+    return bool(ok), launches
+
+
+def trainvali_options_phase(work, main_out):
+    """(e) one trainvali epoch on phase 7's scene from an .ini that sets
+    norm = batch and loss = barron + E-LPIPS + SSIM; the checkpoint's
+    moving statistics; restore_model and a Server request on them.
+    Returns (ok, launches)."""
+    cfg = config_mod.read_config(main_out.rstrip("/") + ".ini")
+    for k, v in (("norm", "batch"), ("loss", "barron,1e+0elpips,1e+0ssim"),
+                 ("epochs", "1"), ("ckpt_period", "1"), ("vali_period", "1"),
+                 ("xname", "options"), ("overwrite", "True")):
+        cfg.set(k, v)
+    ini = os.path.join(work, "options.ini")
+    cfg.save(ini)
+    os.environ["NLT_TPU_FUSED_STAGE"] = "1"
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    outdir = trainvali.main(["--config", ini])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    times = _epoch_times(outdir)
+    n_steps = sum(t["batches"] for t in times)
+    want = {k: NORM_LAUNCHES[k] * n_steps for k in KERNELS}
+    ckpt_dir = os.path.join(outdir, "checkpoints")
+    from nlt_tpu_torch.utils import checkpoint as ckpt_mod
+    tree = ckpt_mod.CheckpointManager(ckpt_dir).load()
+    moving = _moving(tree["params"])
+    fresh = _moving(_reset_moving(tree["params"]))
+    moved = bool(moving) and all(not torch.equal(moving[k], fresh[k])
+                                 for k in moving)
+    # restore_model and a Server request answer on the moving statistics.
+    model, st = restore_model(cfg, ckpt_dir, device="cuda")
+    server = Server(ckpt_dir, config=cfg, device="cuda")
+    vali = get_dataset_class("nlt")(cfg, "vali")
+    batch = next(iter(vali.iterate(seed=0, drop_remainder=False)))
+    req = {k: v for k, v in batch.items() if not isinstance(v, list)}
+    out = server.predict(req)
+    placed = {k: torch.from_numpy(np.asarray(v)).to("cuda")
+              for k, v in req.items()}
+    with torch.no_grad():
+        want_pred = model.apply(st["params"], placed, "test")[3]["pred"]
+        init_pred = model.apply(_reset_moving(st["params"]), placed,
+                                "test")[3]["pred"]
+    served_err = float(np.abs(out["pred"] - want_pred.cpu().numpy()).max())
+    init_gap = float((want_pred - init_pred).abs().max())
+    scalars = _scalars(outdir, "train")
+    ok = (launches == want and moved and served_err <= 1e-5
+          and init_gap > 1e-3 and np.isfinite(
+              scalars["loss_train"][1]))
+    emit(phase="trainvali_options", config=ini, norm="batch",
+         loss="barron,1e+0elpips,1e+0ssim", steps=n_steps, launches=launches,
+         launches_expected=want, loss_train=scalars["loss_train"],
+         loss_vali=_scalars(outdir, "vali").get("loss_vali"),
+         moving_stats=len(moving), moving_changed=moved,
+         served_vs_model_max_abs=served_err,
+         pred_gap_to_init_stats=init_gap, seconds=seconds, ok=bool(ok))
+    return bool(ok), launches
+
+
+def options_phase(work, main_out):
+    """Phase 9 (a)-(e). Returns (ok, {label: launches})."""
+    os.environ["NLT_TPU_FUSED_STAGE"] = "1"
+    t0 = time.perf_counter()
+    flag = Run9(train_cfg("bfloat16"), 1)  # the yardstick of the timings
+    ok, launches = True, {}
+    for fn in (losses_phase, norms_phase, remat_phase):
+        f_ok, f_l = fn(flag)
+        ok &= f_ok
+        launches.update(f_l)
+    if main_out:
+        tv_ok, tv_l = trainvali_options_phase(work, main_out)
+        ok &= tv_ok
+        launches["trainvali_options"] = tv_l
+    else:
+        ok = False
+    emit(phase="train_options_all", seconds=time.perf_counter() - t0,
+         ok=bool(ok))
+    return bool(ok), launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     for kind in ("expand", "contract"):
@@ -2303,6 +2764,11 @@ def main(argv=None):
         emit(phase="inference", ok=bool(inf_ok),
              seconds=time.perf_counter() - t0)
         ok &= inf_ok
+
+        # 9. The rest of training: E-LPIPS, SSIM, the norms, remat, and a
+        # trainvali epoch with them on phase 7's scene.
+        opt_ok, opt_launches = options_phase(work, main_out)
+        ok &= opt_ok
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2316,6 +2782,7 @@ def main(argv=None):
                    "train": train_launches.get(kind, 0),
                    "trainvali": tv_launches.get(kind, 0)}
         by_path.update({p: v.get(kind, 0) for p, v in inf_launches.items()})
+        by_path.update({p: v.get(kind, 0) for p, v in opt_launches.items()})
         kernels.append({
             "name": kind, "route": "cuda", "source": SOURCES[kind],
             "replaces": REPLACES[kind], "launches": sum(by_path.values()),
@@ -2332,6 +2799,13 @@ def main(argv=None):
             ok &= train_launches[kind] > 0 and tv_launches.get(kind, 0) > 0
         if kind in QUERY_LAUNCHES:  # the inference paths' stages
             ok &= all(v.get(kind, 0) > 0 for v in inf_launches.values())
+        # Phase 9: every path runs K1; the fused-stage paths K2 and K3.
+        for p, v in opt_launches.items():
+            if kind == "scatter_add_rows" or (
+                    kind in QUERY_LAUNCHES and p in ("train_elpips",
+                                                     "train_ssim",
+                                                     "train_remat")):
+                ok &= v.get(kind, 0) > 0
     emit(phase="summary", ok=bool(ok),
          note="kernel ms/plain_ms/bound_ms/library_ms: contract/expand "
               "summed over the stages of one bs-1 request of the serving "
@@ -2339,8 +2813,9 @@ def main(argv=None):
               "step; conv2x2s2_lrelu: summed over nlt_tpu's three shapes "
               "at bs 4 (no path runs it). launches: the serving requests, "
               "the training steps, the trainvali run, the nlt_test run, "
-              "the cached requests and the exported requests, each "
-              "counted from 0")
+              "the cached requests, the exported requests and phase 9's "
+              "option paths (E-LPIPS, SSIM, the norms, remat, the options "
+              "trainvali epoch), each counted from 0")
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1

@@ -13,9 +13,10 @@ unless the caller names another device; without CUDA they raise.
 
 Ported so far: serving (``serve.Server`` over ``models.nlt.Model``,
 with the device input cache and ``torch.export`` bundles), test-time
-inference (``nlt_test``), the training step of the flagship recipe
-(``parallel/train.py``: barron + LPIPS, AMSGrad, cached statics) and
-the training entry point (``trainvali``), with the fused U-Net stage
+inference (``nlt_test``), the training step (``parallel/train.py``:
+the flagship recipe's barron + LPIPS, AMSGrad and cached statics, and
+nlt_tpu's other training options: the norms, remat, SSIM and E-LPIPS)
+and the training entry point (``trainvali``), with the fused U-Net stage
 kernels of ``ops/fused_stage.py``, the resampler-backward scatter of
 ``ops/scatter.py`` and the conv stage of ``ops/conv_stage.py`` written
 in CUDA C++ (``csrc/fused_stage.cu`` and the split routes

@@ -1,5 +1,6 @@
-"""Loss layer (port of nlt_tpu/losses/__init__.py): L1, L2, UVL2, Barron
-and LPIPS, and the weighted loss-spec parser (``'barron,1e+0lpips'``).
+"""Loss layer (port of nlt_tpu/losses/__init__.py): L1, L2, UVL2, SSIM,
+Barron, LPIPS and E-LPIPS, and the weighted loss-spec parser
+(``'barron,1e+0lpips'``).
 
 Every loss is an object with
 
@@ -8,10 +9,10 @@ Every loss is an object with
 
 Stateful losses carry their state explicitly (Barron's latent alpha and
 scale when trainable, LPIPS's network weights), so it lives in the
-params tree under ``params['loss']``. SSIM and E-LPIPS are not ported
-yet (ROADMAP.md, queue 1, item 4); building them raises. The Barron and
-LPIPS forwards are marked for the profiler (``nlt::barron``,
-``nlt::lpips``).
+params tree under ``params['loss']``. E-LPIPS is stochastic
+(``stochastic = True``): it takes a CPU ``torch.Generator`` to draw its
+transforms from. The forwards are marked for the profiler
+(``nlt::barron``, ``nlt::lpips``, ``nlt::ssim``, ``nlt::elpips``).
 """
 
 import torch
@@ -20,12 +21,11 @@ from ..utils import logging as logutil
 from ..utils.img import alpha_blend, resize, rgb_to_yuv
 from ..utils.tree import tree_map
 from . import adaptive as _adaptive
+from . import elpips as _elpips
 from . import lpips as _lpips
+from . import ssim as _ssim
 
 logger = logutil.Logger(loggee="losses")
-
-_NOT_PORTED = ("%s is not ported to nlt_tpu_torch yet (ROADMAP.md, queue 1, "
-               "item 4: the rest of training)")
 
 
 def _reduce(loss, keep_batch):
@@ -74,6 +74,25 @@ class UVL2:
         if weights is not None:
             err = err * weights
         return _reduce(err, keep_batch)
+
+
+class SSIM:
+    """(1 - SSIM) / 2, in [0, 1]."""
+
+    def __init__(self, dynamic_range=1.0):
+        self.dynamic_range = dynamic_range
+
+    def init_params(self):
+        return {}
+
+    def __call__(self, params, gt, pred, keep_batch=False, weights=None):
+        if weights is not None:
+            gt = alpha_blend(gt, weights)
+            pred = alpha_blend(pred, weights)
+        with torch.profiler.record_function("nlt::ssim"):
+            loss = (1.0 - _ssim.ssim(gt, pred,
+                                     max_val=self.dynamic_range)) / 2.0
+        return loss if keep_batch else loss.mean()
 
 
 class Barron:
@@ -186,6 +205,57 @@ class LPIPS:
         return loss if keep_batch else loss.mean()
 
 
+class ELPIPS(LPIPS):
+    """LPIPS averaged over `n_samples` random transforms, each applied
+    identically to both images (losses/elpips.py). Stochastic: a call
+    draws its transforms from `generator` (a CPU torch.Generator; the
+    train step seeds one per step and microbatch), or from a generator
+    seeded with `seed` when none is given (evaluation). `draws`, a list
+    of n_samples elpips.Draw, replaces the drawing. The ground-truth
+    branch changes with the transform, so its features are not cached
+    (cacheable_gt = False)."""
+
+    stochastic = True
+    cacheable_gt = False
+
+    def __init__(self, n_samples=1, weights_npz=None, seed=0, max_res=None):
+        super().__init__(per_ch=False, weights_npz=weights_npz, seed=seed,
+                         max_res=max_res)
+        self.n_samples = n_samples
+
+    def draw(self, generator, gt):
+        """n_samples transforms for images shaped like `gt`."""
+        square = gt.shape[1] == gt.shape[2]
+        return [_elpips.draw_transform(generator, square)
+                for _ in range(self.n_samples)]
+
+    def __call__(self, params, gt, pred, keep_batch=False, weights=None,
+                 generator=None, draws=None):
+        if gt.shape[3] != 3 or pred.shape[3] != 3:
+            raise ValueError("Both ground truth and prediction must be "
+                             "(N, H, W, 3)")
+        if draws is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(self.seed)
+            draws = self.draw(generator, gt)
+        if len(draws) != self.n_samples:
+            raise ValueError("%d draws for %d samples"
+                             % (len(draws), self.n_samples))
+        if weights is not None:
+            gt = alpha_blend(gt, weights)
+            pred = alpha_blend(pred, weights)
+        params = tree_map(torch.Tensor.detach, params)
+        with torch.profiler.record_function("nlt::elpips"):
+            total = 0.0
+            for d in draws:
+                total = total + _lpips.lpips(
+                    params,
+                    self._transform(_elpips.apply_transform(pred, d)),
+                    self._transform(_elpips.apply_transform(gt, d)))
+            loss = total / self.n_samples
+        return loss if keep_batch else loss.mean()
+
+
 def parse_loss_and_weight(weight_loss_str):
     """'1e+2lpips' / 'l1' / '10barron' -> (name, weight): the longest
     prefix that parses as a float is the weight."""
@@ -236,8 +306,18 @@ def build_losses(loss_str, config=None, imh=None, imw=None):
                     if config.has(key):
                         kw[arg] = get(key)
             loss = Barron(imw, imh, **kw)
-        elif name in ("ssim", "elpips"):
-            raise NotImplementedError(_NOT_PORTED % name.upper())
+        elif name == "ssim":
+            loss = SSIM(1.0)
+        elif name == "elpips":
+            kw = {}
+            if config is not None:
+                for key, arg, get in (
+                        ("lpips_weights", "weights_npz", config.get_or_none),
+                        ("lpips_max_res", "max_res", config.get_int),
+                        ("elpips_samples", "n_samples", config.get_int)):
+                    if config.has(key):
+                        kw[arg] = get(key)
+            loss = ELPIPS(**kw)
         else:
             raise NotImplementedError(name)
         wloss.append((weight, loss))

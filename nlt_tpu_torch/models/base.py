@@ -33,23 +33,33 @@ class Model:
         return {str(i): loss.init_params()
                 for i, (_, loss) in enumerate(self.wloss)}
 
-    def compute_loss(self, params, pred, gt, gt_feats=None, **kwargs):
+    def compute_loss(self, params, pred, gt, gt_feats=None, loss_key=None,
+                     **kwargs):
         """Weighted sum of the configured losses; loss state lives under
         params['loss']. `gt_feats`: {loss_index_str: cached features}
         for the losses whose ground-truth branch is static
-        (extract_gt_feats)."""
+        (extract_gt_feats). `loss_key`: a CPU torch.Generator handed to
+        the stochastic losses (E-LPIPS) only; without one they use their
+        fixed seed."""
         loss = 0.0
         for i, (weight, loss_fn) in enumerate(self.wloss):
             kw = kwargs
             if gt_feats is not None and str(i) in gt_feats:
                 kw = dict(kw, gt_feats=gt_feats[str(i)])
+            if loss_key is not None and getattr(loss_fn, "stochastic",
+                                                False):
+                kw = dict(kw, generator=loss_key)
             loss = loss + weight * loss_fn(params["loss"][str(i)], gt, pred,
                                            **kw)
         return loss
 
+    def has_stochastic_loss(self):
+        return any(getattr(l, "stochastic", False) for _, l in self.wloss)
+
     def feat_loss_indices(self):
         """Indices of the losses whose gt branch can be computed once and
-        cached (LPIPS with per_ch=False)."""
+        cached (LPIPS with per_ch=False; not E-LPIPS, whose transforms
+        change the gt)."""
         return [i for i, (_, l) in enumerate(self.wloss)
                 if hasattr(l, "extract_feats")
                 and getattr(l, "cacheable_gt", False)

@@ -25,6 +25,10 @@ named outputs (a test-mode server never runs the fg/base resamples).
 Concatenation promotes dtypes as jnp.concatenate does: a float32 obs
 pyramid joined to a bfloat16 query feature map continues in float32.
 
+With ``remat`` each U-Net stage runs under torch.utils.checkpoint: its
+activations are recomputed in the backward, fused-stage kernels
+included.
+
 The losses live in ``models/base.py``. The host-side visualization
 (``vis_batch``, ``compile_batch_vis``: the HTML gallery of train/vali
 batches, the video of the test views that ``nlt_test.infer`` wrote; the
@@ -37,11 +41,13 @@ from os.path import exists, join
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import losses as losses_mod
 from .. import resolve_device
 from ..metrics import PSNR
 from ..networks import convnet
+from ..networks import elements
 from ..ops import resample as resample_mod
 from ..utils import img as imgutil
 from ..utils import io as ioutil
@@ -119,6 +125,16 @@ class Model(BaseModel):
         if self.obs_weighting not in ("none", "inverse_distance"):
             raise ValueError("Unknown obs_weighting %r" % self.obs_weighting)
         self.obs_fold = config.get_bool("obs_fold", False)
+        if self.obs_fold and norm == "batch":
+            logger.warn(
+                "obs_fold=True with norm=batch: the obs path's BN batch "
+                "statistics run over the folded (N*K) axis, coupling "
+                "observations (not equal to the unrolled per-observation "
+                "loop)")
+        # remat: each U-Net stage's activations are recomputed in the
+        # backward pass (torch.utils.checkpoint) instead of kept; the same
+        # numbers, less memory, a second forward of every stage.
+        self.remat = config.get_bool("remat", False)
         self.skip_connect_base = config.get_bool("skip_connect_base")
         # nlt_tpu's two resample formulations compute the same function;
         # the port has one.
@@ -127,6 +143,27 @@ class Model(BaseModel):
                              % config.get("resample_impl"))
         self.compute_dtype = _DTYPES[config.get("compute_dtype", "float32")]
         self.psnr = PSNR(np.float32)
+
+    def _stage_apply(self, stage, p, x):
+        """stage.apply, under torch.utils.checkpoint when remat is set
+        and autograd records. The recompute in the backward sees the
+        same BatchNorm mode as the forward (batch statistics inside the
+        train step's collector, not recorded twice), so it reproduces the
+        forward's values, fused-stage kernels included."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return stage.apply(p, x)
+        batch_stats = elements.collecting_bn_stats()
+        calls = []
+
+        def run(p, x):
+            if not calls:  # the forward: record into the active collector
+                calls.append(1)
+                return stage.apply(p, x)
+            with elements.collect_bn_stats(enabled=batch_stats):
+                return stage.apply(p, x)
+
+        return checkpoint(run, p, x, use_reentrant=False,
+                          preserve_rng_state=False)
 
     def _init_loss(self):
         """Barron needs the image size."""
@@ -336,7 +373,8 @@ class Model(BaseModel):
             if contracting:
                 obs_agg = None
                 if obs_xs is not None and folded_k is not None:
-                    obs_x = obs.stages[obs_i].apply(o_params[obs_i], obs_x)
+                    obs_x = self._stage_apply(obs.stages[obs_i],
+                                              o_params[obs_i], obs_x)
                     kview = obs_x.reshape((n, folded_k) + obs_x.shape[1:])
                     if obs_weights is None:
                         obs_agg = kview.mean(dim=1)
@@ -345,7 +383,8 @@ class Model(BaseModel):
                                    / obs_weights.sum(dim=1))
                     obs_i += 1
                 elif obs_xs is not None:
-                    obs_ys = [obs.stages[obs_i].apply(o_params[obs_i], t)
+                    obs_ys = [self._stage_apply(obs.stages[obs_i],
+                                                o_params[obs_i], t)
                               for t in obs_xs]
                     if obs_weights is None and len(obs_ys) == 1:
                         obs_agg = obs_ys[0]
@@ -358,7 +397,7 @@ class Model(BaseModel):
                     obs_xs = obs_ys
                     obs_i += 1
 
-                query_y = stage.apply(q_params[i], query_x)
+                query_y = self._stage_apply(stage, q_params[i], query_x)
                 if self.use_obs:
                     if obs_override is not None:
                         obs_agg = obs_override[i]
@@ -369,7 +408,7 @@ class Model(BaseModel):
             else:
                 if query_featmaps:
                     query_x = _cat(query_x, query_featmaps.pop())
-                query_y = stage.apply(q_params[i], query_x)
+                query_y = self._stage_apply(stage, q_params[i], query_x)
                 query_x = query_y
         return query_y
 

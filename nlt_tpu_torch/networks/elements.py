@@ -1,5 +1,5 @@
-"""Layer elements: conv/deconv/upconv/norm/act/pool as (init, apply)
-pairs of plain functions on NHWC tensors with HWIO kernels.
+"""Layer elements: conv/deconv/upconv/norm/act/pool/dense as (init,
+apply) pairs of plain functions on NHWC tensors with HWIO kernels.
 
 Port of nlt_tpu/networks/elements.py. Kept semantics:
 
@@ -8,6 +8,10 @@ Port of nlt_tpu/networks/elements.py. Kept semantics:
   with the spatially flipped kernel and the before/after pad split
   swapped;
 - leakyrelu slope 0.3;
+- the layer / instance / pixel norms' epsilons 1e-3 / 1e-6 / 1e-8;
+  'batch' is Keras BatchNormalization: batch statistics in training
+  (while a ``collect_bn_stats()`` context is active), the moving
+  statistics otherwise (see the BatchNorm section below);
 - params are stored float32 and cast per layer to the activation dtype;
   products accumulate in float32 and round once to the activation dtype
   before the bias add.
@@ -24,6 +28,7 @@ A Layer is a pair of functions:
 
 import collections
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -167,11 +172,93 @@ def act(type_):
     raise NotImplementedError(type_)
 
 
+# ---- BatchNorm moving statistics -----------------------------------
+#
+# Keras BatchNormalization, as nlt_tpu keeps it: the moving statistics
+# are leaves of the params tree ("moving_mean__<bn_name>" /
+# "moving_var__<bn_name>"; their loss gradient is zero). While a
+# collect_bn_stats() context is active (the train step), each BN layer
+# normalizes by the batch's mean and biased variance over (N, H, W) and
+# records them, float32 and detached, under its bn_name; the step then
+# EMA-merges them into the params (merge_bn_stats). Outside a collector
+# (validation, test, serving) BN normalizes by the moving statistics.
+
+BN_MOMENTUM = 0.99  # Keras BatchNormalization default
+
+# Thread-local: trainvali places batches on a worker thread, and a
+# collector on one thread must not see another's layers.
+_BN_STATE = threading.local()
+
+
+def _bn_taps():
+    return getattr(_BN_STATE, "taps", None)
+
+
+class collect_bn_stats:
+    """Within the context, BN layers use batch statistics and record them
+    as {bn_name: {'mean', 'var'}} in the dict the context returns.
+    enabled=False restores the moving statistics inside (a remat
+    recompute of an eval-mode forward)."""
+
+    def __init__(self, enabled=True):
+        self.enabled = enabled
+
+    def __enter__(self):
+        self._prev = _bn_taps()
+        _BN_STATE.taps = {} if self.enabled else None
+        return _BN_STATE.taps
+
+    def __exit__(self, *exc):
+        _BN_STATE.taps = self._prev
+        return False
+
+
+def collecting_bn_stats():
+    """Whether BN layers on this thread use batch statistics now."""
+    return _bn_taps() is not None
+
+
+def merge_bn_stats(params, taps, momentum=None):
+    """EMA-merge recorded batch statistics into the moving-statistics
+    leaves of a params tree, matched by key name; every other leaf
+    passes through. new = m * moving + (1 - m) * batch, in float32."""
+    if not taps:
+        return params
+    m = BN_MOMENTUM if momentum is None else momentum
+
+    def leaf(key, value):
+        for stat, prefix in (("mean", "moving_mean__"),
+                             ("var", "moving_var__")):
+            if key.startswith(prefix) and key[len(prefix):] in taps:
+                tap = taps[key[len(prefix):]][stat]
+                return (m * value.float() + (1.0 - m) * tap).to(value.dtype)
+        return value
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: leaf(k, v) if isinstance(v, torch.Tensor) else walk(v)
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return tree
+
+    return walk(params)
+
+
+def _affine(params, xn):
+    return xn * params["gamma"].to(xn.dtype) + params["beta"].to(xn.dtype)
+
+
+def _scale_shift_init(gen, in_ch):
+    return {"gamma": torch.ones(in_ch), "beta": torch.zeros(in_ch)}, in_ch
+
+
 def norm(type_, bn_name=None):
-    """None, or 'batch' in inference mode: Keras BatchNormalization
-    normalizing by the moving statistics (eps 1e-3), which live in the
-    params dict under per-layer unique names as in nlt_tpu. Training-mode
-    batch statistics and the other norms come with the training port."""
+    """None, 'batch' (Keras BatchNormalization, eps 1e-3; the moving
+    statistics live in the params dict under keys made from `bn_name`),
+    'layer' (last axis, eps 1e-3), 'instance' (per sample and channel
+    over H, W, eps 1e-6) or 'pixel' (x * rsqrt(mean_c x^2 + 1e-8), no
+    params)."""
     if type_ is None or str(type_).lower() == "none":
         return iden()
     if type_ == "batch":
@@ -187,13 +274,37 @@ def norm(type_, bn_name=None):
                     var_key: torch.ones(in_ch)}, in_ch
 
         def apply(params, x):
-            mean = params[mean_key].to(x.dtype)
-            var = params[var_key].to(x.dtype)
-            xn = (x - mean) * torch.rsqrt(var + 1e-3)
-            return xn * params["gamma"].to(x.dtype) \
-                + params["beta"].to(x.dtype)
+            taps = _bn_taps()
+            if taps is not None:
+                # In x's dtype, as nlt_tpu takes them (the sums run in
+                # float32 either way); recorded in float32.
+                mean = x.mean(dim=(0, 1, 2))
+                var = x.var(dim=(0, 1, 2), correction=0)
+                taps[bn_name] = {"mean": mean.detach().float(),
+                                 "var": var.detach().float()}
+            else:
+                mean = params[mean_key].to(x.dtype)
+                var = params[var_key].to(x.dtype)
+            return _affine(params, (x - mean) * torch.rsqrt(var + 1e-3))
 
         return Layer(init, apply, "batchnorm")
+    if type_ == "layer":
+        def apply(params, x):
+            mean = x.mean(dim=-1, keepdim=True)
+            var = x.var(dim=-1, keepdim=True, correction=0)
+            return _affine(params, (x - mean) * torch.rsqrt(var + 1e-3))
+
+        return Layer(_scale_shift_init, apply, "layernorm")
+    if type_ == "instance":
+        def apply(params, x):
+            mean = x.mean(dim=(1, 2), keepdim=True)
+            var = x.var(dim=(1, 2), keepdim=True, correction=0)
+            return _affine(params, (x - mean) * torch.rsqrt(var + 1e-6))
+
+        return Layer(_scale_shift_init, apply, "instancenorm")
+    if type_ == "pixel":
+        return _no_params(lambda x: x * torch.rsqrt(
+            (x * x).mean(dim=3, keepdim=True) + 1e-8), "pixelnorm")
     raise NotImplementedError(type_)
 
 
@@ -221,6 +332,27 @@ def pool(type_):
             return summed / counts
         return _no_params(apply_fn, "avgpool")
     raise NotImplementedError(type_)
+
+
+def dense(n_out, activation=None):
+    """Fully connected layer on (..., C) tensors (Keras Dense: Glorot
+    uniform kernel, zero bias), activation None, relu, sigmoid or tanh."""
+    acts = {None: lambda y: y, "relu": torch.relu, "sigmoid": torch.sigmoid,
+            "tanh": torch.tanh}
+    if activation not in acts:
+        raise NotImplementedError(activation)
+
+    def init(gen, in_ch):
+        limit = math.sqrt(6.0 / (in_ch + n_out))
+        w = (torch.rand((in_ch, n_out), generator=gen, dtype=torch.float32)
+             * (2.0 * limit) - limit)
+        return {"w": w, "b": torch.zeros(n_out)}, n_out
+
+    def apply(params, x):
+        return acts[activation](x @ params["w"].to(x.dtype)
+                                + params["b"].to(x.dtype))
+
+    return Layer(init, apply, "dense%d" % n_out)
 
 
 def sequential(layers, name="seq"):

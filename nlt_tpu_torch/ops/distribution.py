@@ -6,10 +6,12 @@ r"""The probability distribution induced by the general robust loss
 
 with log Z(alpha) a cubic Hermite spline over a curved reparameterization
 of alpha. The knots are nlt_tpu's (data/partition_spline.npz, a copy of
-nlt_tpu/data/partition_spline.npz). nlt_tpu's rejection sampler
-(``draw_samples``, jax.random) is not ported: no training path uses it.
+nlt_tpu/data/partition_spline.npz). ``draw_samples`` is nlt_tpu's
+rejection sampler with a static number of rounds; its uniforms come from
+a torch.Generator (``samples_from_uniforms`` takes them as given).
 """
 
+import math
 import os
 
 import numpy as np
@@ -104,3 +106,40 @@ class Distribution:
         log_partition = (torch.log(scale)
                          + self.log_base_partition_function(alpha))
         return loss + log_partition.to(x.dtype).expand(x.shape)
+
+    def draw_samples(self, generator, alpha, scale, n_rounds=64):
+        """Rejection-sample the distribution (Algorithm 1 of the paper),
+        one sample per element of `alpha` / `scale`, over a static
+        `n_rounds` rounds: the first accepted Cauchy proposal of each
+        element (nlt_tpu: acceptance fails with probability < 1e-9 per
+        element for alpha in [0, 4] at 64 rounds). The uniforms are drawn
+        on the generator's device."""
+        if alpha.shape != scale.shape:
+            raise ValueError("alpha and scale must have one shape")
+        shape = (n_rounds,) + tuple(alpha.shape)
+        kw = {"generator": generator, "dtype": alpha.dtype,
+              "device": generator.device}
+        u_proposal = torch.rand(shape, **kw).clamp_min(
+            torch.finfo(alpha.dtype).tiny)
+        u_accept = torch.rand(shape, **kw)
+        return self.samples_from_uniforms(
+            alpha, scale, u_proposal.to(alpha.device),
+            u_accept.to(alpha.device))
+
+    def samples_from_uniforms(self, alpha, scale, u_proposal, u_accept):
+        """draw_samples on given uniforms, (n_rounds,) + alpha.shape each:
+        u_proposal in (0, 1) makes round r's Cauchy proposal, u_accept
+        its acceptance test."""
+        log_z = self.log_base_partition_function(alpha)
+        samples = torch.zeros_like(alpha)
+        accepted = torch.zeros(alpha.shape, dtype=torch.bool,
+                               device=alpha.device)
+        for u, v in zip(u_proposal, u_accept):
+            # Cauchy proposals with the sqrt(2) standardization.
+            cauchy = torch.tan(math.pi * (u - 0.5)) * math.sqrt(2.0)
+            nll = self.nllfun(cauchy, alpha, 1.0)
+            nll_bound = general_loss.lossfun(cauchy, 0.0, 1.0) + log_z
+            accept = v <= torch.exp(nll_bound - nll)
+            samples = torch.where(accept & ~accepted, cauchy, samples)
+            accepted = accepted | accept
+        return samples * scale

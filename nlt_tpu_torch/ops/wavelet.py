@@ -1,16 +1,20 @@
 """CDF9/7 and LeGall5/3 wavelet pyramids for the Barron image loss (port
-of nlt_tpu/ops/wavelet.py: ``construct``, ``rescale``, ``flatten``).
+of nlt_tpu/ops/wavelet.py: ``construct`` and its inverse ``collapse``,
+``rescale``, ``flatten`` and the uint8 ``visualize``).
 
 Boundary handling is nlt_tpu's unbounded *reflecting* padding. As in
 nlt_tpu, each reflect-pad + K-tap correlation + decimation by 2 along
 one axis is a static dense band matrix (built in numpy, float64, once
 per axis length, filter and shift) applied as a matmul, so the pyramid
 is a chain of small products whose autograd transpose is the exact
-transposed-reflecting operator. Inputs are (N, H, W) stacks.
+transposed-reflecting operator. ``collapse``'s undecimate + crop or
+pad + reflect-pad + K-tap correlation along one axis is such a matrix
+too. Inputs are (N, H, W) stacks.
 """
 
 import collections
 import functools
+import math
 
 import numpy as np
 import torch
@@ -108,6 +112,46 @@ def _downsample(x, f, direction, shift):
     return torch.matmul(x, d.t())
 
 
+@functools.lru_cache(maxsize=None)
+def _upsample_matrix(n, want, f_bytes, flen, shift):
+    """Dense (want, n) float64 matrix of nlt_tpu's _upsample along one
+    axis: interleave zeros (x at the odd or even places after `shift`),
+    crop or zero-pad to `want`, reflect-pad by flen // 2 before and
+    (flen - 1) // 2 after, correlate with the reversed filter."""
+    f = np.frombuffer(f_bytes, np.float64)[::-1]
+    p = np.arange(want)
+    src = np.where((p % 2 == shift) & (p // 2 < n), p // 2, -1)
+    idx = _reflect_indices(want, flen // 2, (flen - 1) // 2)
+    u = np.zeros((want, n))
+    for i in range(want):
+        for k in range(flen):
+            j = src[idx[i + k]]
+            if j >= 0:
+                u[i, j] += f[k]
+    u.setflags(write=False)
+    return u
+
+
+@functools.lru_cache(maxsize=None)
+def _upsample_tensor(n, want, f_bytes, flen, shift, dtype, device):
+    return torch.tensor(_upsample_matrix(n, want, f_bytes, flen, shift),
+                        dtype=dtype, device=device)
+
+
+def _upsample(x, up_sz, f, direction, shift):
+    """The transpose of _downsample: to length up_sz[direction] along
+    spatial axis `direction`; the other axis must already match."""
+    if x.shape[2 - direction] != up_sz[1 - direction]:
+        raise ValueError("shape %s does not fit %s along the other axis"
+                         % (tuple(x.shape), tuple(up_sz)))
+    f = np.ascontiguousarray(np.asarray(f, np.float64))
+    u = _upsample_tensor(x.shape[direction + 1], up_sz[direction],
+                         f.tobytes(), len(f), shift, x.dtype, x.device)
+    if direction == 0:
+        return torch.matmul(u, x)
+    return torch.matmul(x, u.t())
+
+
 def get_max_num_levels(sz):
     """Max supported pyramid depth for an (N, H, W) shape tuple."""
     min_sz = min(sz[1], sz[2])
@@ -139,6 +183,29 @@ def construct(im, num_levels, wavelet_type):
     return tuple(pyr)
 
 
+def collapse(pyr, wavelet_type):
+    """The inverse of construct(): the (N, H, W) stack back from its
+    pyramid."""
+    filters = generate_filters(wavelet_type)
+    im = pyr[-1]
+    for d in range(len(pyr) - 2, -1, -1):
+        hi_hi, hi_lo, lo_hi = pyr[d]
+        up_sz = (hi_lo.shape[1] + lo_hi.shape[1],
+                 lo_hi.shape[2] + hi_lo.shape[2])
+        lo_sz = (im.shape[1], up_sz[1])
+        hi_sz = (hi_hi.shape[1], up_sz[1])
+        im = (
+            _upsample(
+                _upsample(im, lo_sz, filters.synthesis_lo, 1, 0)
+                + _upsample(hi_lo, lo_sz, filters.synthesis_hi, 1, 1),
+                up_sz, filters.synthesis_lo, 0, 0)
+            + _upsample(
+                _upsample(lo_hi, hi_sz, filters.synthesis_lo, 1, 0)
+                + _upsample(hi_hi, hi_sz, filters.synthesis_hi, 1, 1),
+                up_sz, filters.synthesis_hi, 0, 1))
+    return im
+
+
 def rescale(pyr, scale_base):
     """Scale level d by scale_base**d."""
     out = []
@@ -158,3 +225,30 @@ def flatten(pyr):
             torch.cat([flat, pyr[d][1]], dim=2),
             torch.cat([pyr[d][2], pyr[d][0]], dim=2)], dim=1)
     return flat
+
+
+def _percentile_nearest(x, percentile):
+    """nlt_tpu's jnp.percentile(x, percentile, method='nearest') over all
+    of x: the sorted value at rank pos, rounded down at an exact half.
+    pos is percentile / 100 * (n - 1) as XLA compiles it, the constants
+    refolded to percentile * ((n - 1) * 0.01), in float64; that decides
+    which way an exact half (such as the median of 8 values) falls."""
+    s = x.flatten().sort().values
+    pos = percentile * ((s.numel() - 1) * 0.01)
+    lo = math.floor(pos)
+    return s[lo if pos - lo <= 0.5 else math.ceil(pos)]
+
+
+def visualize(pyr, percentile=99.0):
+    """uint8 (H, W, N) picture of a pyramid's flatten(): each band scaled
+    by its `percentile`-th magnitude into [0, 1], the residual by its
+    range."""
+    vis_pyr = []
+    for d in range(len(pyr) - 1):
+        vis_pyr.append(tuple(
+            0.5 * (1.0 + (band / _percentile_nearest(band.abs(), percentile))
+                   .clamp(-1.0, 1.0)) for band in pyr[d]))
+    resid = pyr[-1]
+    vis_pyr.append((resid - resid.min()) / (resid.max() - resid.min()))
+    flat = flatten(vis_pyr)
+    return torch.round(255.0 * flat.permute(1, 2, 0)).to(torch.uint8)

@@ -14,14 +14,21 @@ The loss network's weights (LPIPS) are detached inside the loss, so they
 get no gradient; the optimizer walks them with zero gradients, as optax
 does. The optimizer's work is marked for the profiler (``nlt::optimizer``).
 
-Not ported yet (they raise): BatchNorm in training mode (norm = batch)
-and remat (ROADMAP.md, queue 1, item 4). Distribution over several
-devices is ROADMAP queue 1, item 5.
+BatchNorm (norm = batch): the forward runs inside
+``elements.collect_bn_stats()``; after the optimizer update (which walks
+the moving-statistics leaves with their zero gradient) the recorded
+batch statistics, averaged over the microbatches, are EMA-merged into
+the params, before nan_guard and the EMA of the params, as in nlt_tpu.
+Stochastic losses (E-LPIPS) draw from a CPU torch.Generator seeded from
+(17, step, microbatch): one fresh draw per step and microbatch, the
+port's own stream (nlt_tpu folds the step into a JAX key). Distribution
+over several devices is ROADMAP queue 1, item 5.
 """
 
 import numpy as np
 import torch
 
+from ..networks import elements
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 
 # optax.amsgrad's defaults (eps_root 0).
@@ -133,15 +140,20 @@ def _merge(parts):
             (-1,) + tuple(xs[0].shape[1:])), *parts)
 
 
-def _check_trainable(model):
-    norm = model.config.get_or_none("norm")
-    if norm is not None and str(norm).lower() == "batch":
-        raise NotImplementedError(
-            "BatchNorm in training mode (norm = batch) is not ported yet "
-            "(ROADMAP.md, queue 1, item 4)")
-    if model.config.get_bool("remat", False):
-        raise NotImplementedError("remat is not ported yet (ROADMAP.md, "
-                                  "queue 1, item 4)")
+def loss_generator(step, micro_i=0):
+    """The CPU generator a stochastic loss draws from at `step` (an int)
+    and microbatch `micro_i`."""
+    seed = np.random.SeedSequence((17, step, micro_i)).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed))
+
+
+def _mean_taps(taps):
+    """BN statistics of the microbatches averaged, name by name (the mean
+    of the means and of the variances, as nlt_tpu takes them)."""
+    return {name: {stat: torch.stack([t[name][stat] for t in taps]).mean(0)
+                   for stat in ("mean", "var")}
+            for name in taps[0]}
 
 
 def make_train_step(model, tx, with_vis=True, cached_statics=False,
@@ -159,12 +171,21 @@ def make_train_step(model, tx, with_vis=True, cached_statics=False,
     microbatches run in turn, and their mean gradient makes one update.
 
     nan_guard: a step whose loss or any gradient is non-finite keeps the
-    previous params and optimizer state (step still advances; the loss
-    is returned as it was).
+    previous params and optimizer state, BN moving statistics included
+    (step still advances; the loss is returned as it was).
     """
-    _check_trainable(model)
+    stochastic = model.has_stochastic_loss()
+    # The step counter on the host, for the stochastic losses' seeds: read
+    # from the device once for a state this step did not make, then
+    # carried along.
+    host_step = {"tensor": None, "value": None}
 
-    def loss_and_grads(params, batch, statics):
+    def step_of(state):
+        if state["step"] is not host_step["tensor"]:
+            host_step["value"] = int(state["step"])
+        return host_step["value"]
+
+    def loss_and_grads(params, batch, statics, loss_key):
         leaves = tree_leaves(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         p = tree_unflatten(params, live)
@@ -174,41 +195,57 @@ def make_train_step(model, tx, with_vis=True, cached_statics=False,
             gt_feats = statics["feats"] or None
             if statics["products"]:
                 apply_kwargs["statics"] = statics["products"]
-        pred, gt, kwargs, to_vis = model.apply(p, batch, "train",
-                                               **apply_kwargs)
+        with elements.collect_bn_stats() as taps:
+            pred, gt, kwargs, to_vis = model.apply(p, batch, "train",
+                                                   **apply_kwargs)
         kwargs["keep_batch"] = True
         if gt_feats:
             kwargs["gt_feats"] = gt_feats
+        if loss_key is not None:
+            kwargs["loss_key"] = loss_key
         loss = model.compute_loss(p, pred, gt, **kwargs).mean()
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(x) if gx is None else gx
                  for x, gx in zip(leaves, grads)]
-        return loss.detach(), grads, tree_map(torch.Tensor.detach, to_vis)
+        return (loss.detach(), grads, tree_map(torch.Tensor.detach, to_vis),
+                taps)
 
     def train_step(state, batch, statics=None):
         params = state["params"]
+        step = step_of(state) if stochastic else None
+
+        def key(i):
+            return loss_generator(step, i) if stochastic else None
+
         if grad_accum > 1:
             bs = next(iter(batch.values())).shape[0]
             if bs % grad_accum:
                 raise ValueError("batch dim %d not divisible by grad_accum=%d"
                                  % (bs, grad_accum))
-            loss, grads, vis = 0.0, None, []
+            loss, grads, vis, taps = 0.0, None, [], []
             for i in range(grad_accum):
-                li, gi, vi = loss_and_grads(
+                li, gi, vi, ti = loss_and_grads(
                     params, _split(batch, i, grad_accum),
-                    _split(statics, i, grad_accum) if statics else None)
+                    _split(statics, i, grad_accum) if statics else None,
+                    key(i))
                 loss = loss + li
                 grads = gi if grads is None else torch._foreach_add(grads, gi)
                 vis.append(vi)
+                taps.append(ti)
             loss = loss / grad_accum
             grads = torch._foreach_div(grads, grad_accum)
             to_vis = _merge(vis)
+            taps = _mean_taps(taps) if taps[0] else {}
         else:
-            loss, grads, to_vis = loss_and_grads(params, batch, statics)
+            loss, grads, to_vis, taps = loss_and_grads(params, batch, statics,
+                                                       key(0))
         grads = tree_unflatten(params, grads)
         with torch.profiler.record_function("nlt::optimizer"):
             updates, opt_state = tx.update(grads, state["opt_state"])
             new_params = apply_updates(params, updates)
+        # BN moving statistics; before nan_guard, so a guarded step keeps
+        # the old ones.
+        new_params = elements.merge_bn_stats(new_params, taps)
         if nan_guard:
             ok = torch.isfinite(loss)
             for g in tree_leaves(grads):
@@ -218,6 +255,8 @@ def make_train_step(model, tx, with_vis=True, cached_statics=False,
                 (new_params, opt_state), (params, state["opt_state"]))
         new_state = {"params": new_params, "opt_state": opt_state,
                      "step": state["step"] + 1}
+        if stochastic:
+            host_step.update(tensor=new_state["step"], value=step + 1)
         if "ema_params" in state:
             # d and 1 - d taken in float32, as nlt_tpu does.
             d = np.float32(ema_decay)
@@ -255,7 +294,8 @@ def make_static_extractor(model):
 
 def make_eval_step(model):
     """eval_step(state, batch) -> (loss, to_vis), with the EMA weights
-    when the state keeps them."""
+    when the state keeps them; BN on the moving statistics, E-LPIPS on
+    its fixed seed."""
 
     @torch.no_grad()
     def eval_step(state, batch):

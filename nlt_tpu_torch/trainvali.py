@@ -12,7 +12,10 @@ warm start, ``nan_guard``, ``ema_decay``, the static-feature cache
 (``cache_static``/``lpips_cache_gt``), the device example cache
 (``cache_device``), ``prefetch_batches``, JSONL scalars, train/vali vis
 with retention queues, keep-best checkpoint retention, and the SIGTERM
-checkpoint-and-exit.
+checkpoint-and-exit. Every training option of the step runs here too:
+with norm = batch the checkpoints carry the merged moving statistics,
+and validation and vis run on them; E-LPIPS's ground truth is never
+cached (cache_static keeps its warp products only).
 
 The port's ways:
 - the device's work is queued without waiting: each batch's loss stays a

@@ -339,11 +339,10 @@ def test_loss_spec_parsing_and_unported_losses():
     for s in ("1e+2lpips", "l1", "10barron", "0.5l2", "barron"):
         assert tlosses.parse_loss_and_weight(s) == \
             jlosses.parse_loss_and_weight(s)
-    jw, tw = _loss_pair("barron,1e+0lpips")
+    jw, tw = _loss_pair("barron,1e+0lpips,0.5ssim,2elpips",
+                        elpips_samples="3")
     assert [(w, type(l).__name__) for w, l in tw] == \
         [(w, type(l).__name__) for w, l in jw]
-    for name in ("ssim", "elpips"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlosses.build_losses(name)
+    assert tw[3][1].n_samples == jw[3][1].n_samples == 3
     with pytest.raises(NotImplementedError):
         tlosses.build_losses("nosuchloss")

@@ -55,10 +55,10 @@ def build(cfg, fused, monkeypatch):
     return jmodel, jtx, jstate, tmodel, ttx, tstate
 
 
-def batches(n_steps, n=2):
+def batches(n_steps, n=2, seed0=10):
     out = []
     for i in range(n_steps):
-        b = make_batch(10 + i, n=n)
+        b = make_batch(seed0 + i, n=n)
         out.append(({k: jnp.asarray(v) for k, v in b.items()},
                     {k: torch.from_numpy(v) for k, v in b.items()}))
     return out
@@ -99,12 +99,13 @@ def run_both(jmodel, jtx, jstate, tmodel, ttx, tstate, cached, steps,
              **kw):
     """Run both steps over the same batches; returns the losses and the
     states after the first step and at the end."""
+    seed0 = kw.pop("seed0", 10)
     jstep = jtrain.make_train_step(jmodel, jtx, cached_statics=cached, **kw)
     tstep = ttrain.make_train_step(tmodel, ttx, cached_statics=cached, **kw)
     jext = jtrain.make_static_extractor(jmodel)
     text = ttrain.make_static_extractor(tmodel)
     losses, first = [], None
-    for jb, tb in batches(steps, n=kw.get("grad_accum", 1) * 2):
+    for jb, tb in batches(steps, n=kw.get("grad_accum", 1) * 2, seed0=seed0):
         if cached:
             jstate, jl, _ = jstep(jstate, jb, jext(jstate["params"], jb))
             tstate, tl, _ = tstep(tstate, tb, text(tstate["params"], tb))
@@ -289,9 +290,35 @@ def test_optimizer_matches_optax(mgm):
 
 
 def test_unported_training_options_raise(monkeypatch):
+    """What stays unported raises: compact resample plans
+    (take_compact_frac > 0) when the statics are made. (Several devices:
+    test_torch_trainvali.py::test_several_devices_not_ported.)"""
     monkeypatch.setenv("NLT_TPU_FUSED_STAGE", "0")
-    for over in ({"norm": "batch"}, {"remat": "true"}):
-        model = torch_model_class("nlt")(TConfig(small_cfg(**over)),
-                                         device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.make_train_step(model, ttrain.make_optimizer(LR))
+    model = torch_model_class("nlt")(
+        TConfig(small_cfg(take_compact_frac="0.5")), device="cpu")
+    (_, tb), = batches(1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrain.make_static_extractor(model)(None, tb)
+
+
+@pytest.mark.parametrize("over", [
+    {"norm": "batch"}, {"remat": "true"}, {"loss": "barron,1e+0ssim"},
+    {"loss": "barron,1e+0elpips"}], ids=["batch", "remat", "ssim", "elpips"])
+def test_training_options_build_and_step(monkeypatch, over):
+    """The options that raised before this slice of the port train: two
+    steps on the fused path, finite losses that fall, the step counter
+    advanced. (Their parity with nlt_tpu: test_torch_train_options.py,
+    test_torch_train_resume.py.)"""
+    monkeypatch.setenv("NLT_TPU_FUSED_STAGE", "1")
+    model = torch_model_class("nlt")(TConfig(small_cfg(**over)),
+                                     device="cpu")
+    tx = ttrain.make_optimizer(LR)
+    state = ttrain.init_state(model, tx, torch.Generator().manual_seed(0))
+    step = ttrain.make_train_step(model, tx)
+    (_, tb), = batches(1)
+    losses = []
+    for _ in range(2):
+        state, loss, _ = step(state, tb)
+        losses.append(float(loss))
+    assert all(np.isfinite(losses)) and losses[1] < losses[0]
+    assert int(state["step"]) == 2
