@@ -116,10 +116,11 @@ Phases, each of which must pass for the run to exit 0:
    one run share cuda:0 and talk through gloo (NCCL refuses two ranks of
    one communicator on one device). (a) trainvali on two ranks, 2
    epochs, bs 4 (2 a rank), float32, init_from phase 7's run, against
-   the same run in one process: per-epoch losses to 1e-5, final params
-   to the larger of 1e-5 and 3x the spread of two one-process runs
-   (relative L2), 12 / 6 / 1 launches a step on each rank, only rank 0 writes;
-   each rank's warm s/batch and rank 0's traced idle share; (b) the same
+   the same run in one process: per-epoch losses to 1e-5, the final
+   params of both two-rank runs within the larger of 1e-5 and 3x the
+   spread of two runs of each (relative L2; spread_bar) of both
+   one-process runs, 12 / 6 / 1 launches a step on each rank, only
+   rank 0 writes; each rank's warm s/batch and rank 0's traced idle share; (b) the same
    run at world size 1 over NCCL; (c) one norm = batch step at the
    flagship training width (bf16 and float32) on two ranks against the
    one-process step on the whole batch, and the all-reduce of the
@@ -169,7 +170,8 @@ Phases, each of which must pass for the run to exit 0:
    (float32, 2 epochs, init_from phase 7's run) against one process with
    the statics cache off, as the tile run has it (in turns: tile, one
    process, tile profiled, one process): per-epoch losses
-   1e-6 relative, final params max(1e-5, 3x the one-process spread),
+   1e-6 relative, final params max(1e-5, 3x the spread of two runs
+   of each) as 10(a),
    12 / 6 / 1 launches a step on each rank, cache_static off with
    nlt_tpu's warning, a rank's warm s/batch, the gradient all-reduce ms,
    rank 0's idle share of a traced warm epoch, peak memory per rank. (c)
@@ -202,6 +204,35 @@ Phases, each of which must pass for the run to exit 0:
    the recompute. (c) Per request and step: a rank's device ms, the
    collectives' count and ms (halo all_gathers, row gathers, the moments'
    and the gradients' reduces), wall ms against one process.
+
+15. The compiled programs (nlt_tpu_torch/parallel/graph.py: CUDA graphs
+   over in-place state, nlt_tpu's jit with donation). Every earlier
+   phase's main path already runs through them (the training and eval
+   steps and the serving forward are captured on the card by default,
+   and a replay adds to the launch counters what its capture counted);
+   where an earlier phase intercepts Python calls (recorders, the plain
+   ops, route and dispatch switches, TF32 switches, profiles by
+   category) it runs eagerly inside graph.disabled(), and so do the
+   one-process trainvali runs that phases 10(a) and 12(b) hold their
+   ranks against (the ranks are eager by graph's rule). (a) Phase 6's
+   recipe (bs 4, 512^2, cached statics, barron + LPIPS), bf16 and
+   float32: 6 donated steps eager, captured, eager, captured, eager
+   from one state and one set of batches: each captured run's losses
+   and final params within max(1e-6, 3x the spread) of each eager run's
+   (the losses' spread that of the eager runs, the params' the largest
+   of two runs of either path: spread_bar), the state's tensors kept,
+   12 + 6 + 1 launches a captured step; step time eager and captured in
+   turns, device ms and idle share. The same for 3 bf16 steps of
+   norm = batch, remat and compact plans on both routes (their launch
+   counts: 0 + 0 + 1, 24 + 12 + 1, 12 + 6 + 1). (b) Phase 7's trainvali
+   run for 2 epochs, eager, captured, captured, eager (the last two
+   profiled): per-epoch loss_train of each captured run within the
+   losses' bar of each eager run's, psnr_vali within 0.05 dB, the steps
+   and eval steps replayed; warm s/batch and idle share. (c)
+   Phase 5's serving shape (bf16, the baked pyramid), bs 1 and 4,
+   streamed and ids=: captured uint8 answers bit-equal to eager, a
+   float32 server's within 1e-6 of scale, 6 + 6 launches a captured
+   request; latency, fps, device ms and idle share in turns.
 
 Prints the card's name and power limit, one JSON line per check and
 timing, a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
@@ -250,11 +281,12 @@ from nlt_tpu_torch.ops import _build
 from nlt_tpu_torch.ops import conv_stage as cs
 from nlt_tpu_torch.ops import fused_stage as fs
 from nlt_tpu_torch.ops import scatter as sc
+from nlt_tpu_torch.parallel import graph
 from nlt_tpu_torch.parallel import train as train_mod
 from nlt_tpu_torch.serve import Server
 from nlt_tpu_torch.utils import config as config_mod
 from nlt_tpu_torch.utils.config import Config
-from nlt_tpu_torch.utils.tree import tree_leaves
+from nlt_tpu_torch.utils.tree import tree_leaves, tree_map
 
 RES, DEPTH = 512, 256
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
@@ -311,7 +343,13 @@ EVAL_LAUNCHES = {"contract_stage": 12, "expand_stage": 6,
                  "scatter_add_rows": 0, "conv2x2s2_lrelu": 0}
 
 
+# The checks and phases that failed, named on stderr at the end.
+FAILED = []
+
+
 def emit(**kw):
+    if "ok" in kw and not kw["ok"]:
+        FAILED.append(kw.get("check") or kw.get("phase"))
     print(json.dumps(kw), flush=True)
 
 
@@ -916,7 +954,8 @@ def split_sweep(out_dir):
 
 def capture_stage_inputs(server, req):
     """The fused-stage calls of one request, with copies of their
-    inputs, in order: [(kind, args)]. Not counted as main-path work."""
+    inputs, in order: [(kind, args)]. Not counted as main-path work; an
+    eager request (a replay makes no Python calls)."""
     seen = []
     orig = {k: getattr(fs, k) for k in ("contract_stage", "expand_stage")}
 
@@ -929,7 +968,8 @@ def capture_stage_inputs(server, req):
     try:
         for k in orig:
             setattr(fs, k, recorder(k))
-        server.predict(req)
+        with graph.disabled():
+            server.predict(req)
     finally:
         for k, v in orig.items():
             setattr(fs, k, v)
@@ -1193,6 +1233,25 @@ def _rel_l2(a, b):
                  / b.float().norm().clamp_min(1e-30))
 
 
+def spread_bar(refs, tests, dist, floor, tests_spread=True):
+    """Float32 training runs held against each other. K1's atomics add in
+    no fixed order and AMSGrad's first steps amplify that by an amount
+    that depends on which near-zero gradients flip their step, so two
+    runs of one program land a varying distance apart: on the H100 one
+    pair read from 3e-8 to 5e-5 relative L2 between runs of this script,
+    and one pair's distance is no yardstick. The spread is the largest
+    distance between two runs of one program (either program; each is
+    run twice or more; of the references alone with tests_spread=False);
+    every test run must lie within max(floor, 3x the spread) of every
+    reference run. Returns (cross, spread, bar): cross is the largest
+    test-to-reference distance; it passes if cross <= bar."""
+    pairs = [(a, b) for runs in ((refs, tests) if tests_spread else (refs,))
+             for i, a in enumerate(runs) for b in runs[i + 1:]]
+    spread = max(dist(a, b) for a, b in pairs)
+    cross = max(dist(t, r) for t in tests for r in refs)
+    return cross, spread, max(floor, 3 * spread)
+
+
 def check_stage_grad(kind, shape, o, dtype, seed):
     """Gradients of every input through the kernel forward (ContractStage
     / ExpandStage) against autograd of the plain forward."""
@@ -1262,7 +1321,8 @@ def stage_dispatch(how):
 @contextlib.contextmanager
 def plain_ops():
     """The three ops' entries swapped for their plain versions (autograd
-    of the plain stages; index_add_ for the scatter)."""
+    of the plain stages; index_add_ for the scatter), eagerly: a graph
+    captured through the kernels would replay them."""
     orig = (fs.contract_stage, fs.expand_stage, sc.scatter_add_rows)
 
     def plain(ref):
@@ -1275,7 +1335,8 @@ def plain_ops():
     fs.expand_stage = plain(fs.expand_stage_ref)
     sc.scatter_add_rows = sc.scatter_add_rows_ref
     try:
-        yield
+        with graph.disabled():
+            yield
     finally:
         fs.contract_stage, fs.expand_stage, sc.scatter_add_rows = orig
 
@@ -1318,12 +1379,15 @@ def profile_train_step(step, state, batch, statics, label="barron_lpips"):
     kernels are found by name; every other kernel goes to the first
     profiler range above the op that launched it that names a category
     (the autograd node of a stage backward, a convolution op, the
-    optimizer's and the losses' ranges), else to 'other'."""
+    optimizer's and the losses' ranges), else to 'other'. An eager step:
+    a replay's kernels have no ranges above them (phase 15 profiles the
+    captured step)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            graph.disabled():
         t0 = time.perf_counter()
         step(state, batch, statics)
         torch.cuda.synchronize()
@@ -1443,13 +1507,14 @@ def compare_steps(label, state, batches, statics, model, tx, f32):
 
 def time_paths(model, tx, state, batches, statics, rounds=3):
     """Step time through the kernels and through the plain versions of
-    the three ops, in turns (kernels, plain, kernels, plain, ...)."""
+    the three ops, in turns (kernels, plain, kernels, plain, ...), both
+    eager (phase 15 times the captured step)."""
     step = train_mod.make_train_step(model, tx, cached_statics=True,
                                      with_vis=False)
     times = {"kernels": [], "plain": []}
     for i in range(rounds):
         for path in ("kernels", "plain"):
-            ctx = plain_ops() if path == "plain" else contextlib.nullcontext()
+            ctx = plain_ops() if path == "plain" else graph.disabled()
             b, st = batches[i % len(batches)], statics[i % len(statics)]
             with ctx:
                 torch.cuda.synchronize()
@@ -1523,7 +1588,8 @@ def train_phase():
 
     sc.scatter_add_rows = recorder
     try:
-        step(state, batches[0], statics[0])
+        with graph.disabled():
+            step(state, batches[0], statics[0])
     finally:
         sc.scatter_add_rows = orig
     main_recs = [check_scatter(*a, label="main_path", timing=True)
@@ -2561,7 +2627,8 @@ def remat_phase(flag):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        r.step(r.state0, *r.args(0))
+        with graph.disabled():  # a replay's memory is its pool's
+            r.step(r.state0, *r.args(0))
         torch.cuda.synchronize()
         peaks[name] = {"peak_bytes": torch.cuda.max_memory_allocated(),
                        "above_start_bytes":
@@ -2701,7 +2768,8 @@ DIST_RANK_TIMEOUT = 420
 # against one process, float32: the same sums split over two processes
 # (each rank's half batch, then a mean of two means) and K1's atomics in
 # no fixed order; phase 7's repeat tolerance, 1e-5. The params are held
-# to the larger of this and 3x the one-process repeat's spread.
+# to the larger of this and 3x the spread of two runs of each
+# (spread_bar).
 DIST_TOL = 1e-5
 # norm = batch, two ranks against one process, one step at the flagship
 # training width, the moving statistics relative to each leaf's largest
@@ -2854,10 +2922,14 @@ def dist_phase(work, main_out, card):
               "shapes; a rank of a bs-4 run takes bs 2")
 
     # (a) Two ranks over gloo on cuda:0 against one process, in turns.
+    # The one-process runs are eager, as the ranks are (graph's rule
+    # keeps a mesh over a process group eager): the check is about the
+    # data axis; captured against eager is phase 15's.
     t0 = time.perf_counter()
-    single, single_s = run_trainvali(
-        scene, outroot, "p10_single", "epochs=2", "compute_dtype=float32",
-        "init_from=" + init_from)
+    with graph.disabled():
+        single, single_s = run_trainvali(
+            scene, outroot, "p10_single", "epochs=2",
+            "compute_dtype=float32", "init_from=" + init_from)
     t1 = time.perf_counter()
     res = run_ranks("trainvali", work, rest=_dist_trainvali_argv(
         scene, outroot, "p10_dist", init_from))
@@ -2865,9 +2937,10 @@ def dist_phase(work, main_out, card):
     # The pair again in the other order, for the warm s/batch in turns.
     res_b = run_ranks("trainvali", work, rest=_dist_trainvali_argv(
         scene, outroot, "p10_dist_b", init_from))
-    single_b, _ = run_trainvali(
-        scene, outroot, "p10_single_b", "epochs=2", "compute_dtype=float32",
-        "init_from=" + init_from)
+    with graph.disabled():
+        single_b, _ = run_trainvali(
+            scene, outroot, "p10_single_b", "epochs=2",
+            "compute_dtype=float32", "init_from=" + init_from)
     a_ok = _ranks_ok(res) and _ranks_ok(res_b)
     rec = {"ok": False}
     if a_ok:
@@ -2876,8 +2949,6 @@ def dist_phase(work, main_out, card):
         ld = _scalars(dist, "train")["loss_train"]
         rel = max((abs(ld[e] - v) / abs(v) for e, v in ls.items()
                    if e in ld), default=float("inf"))
-        p_rel = _params_rel_l2(os.path.join(single, "checkpoints"),
-                               os.path.join(dist, "checkpoints"), 2)
         times = _epoch_times(dist)
         n_steps = sum(t["batches"] for t in times)
         n_vali = len(_scalars(dist, "vali").get("loss_vali", {}))
@@ -2890,13 +2961,16 @@ def dist_phase(work, main_out, card):
                          dist, "checkpoints")).all_steps() == [1, 2]
                      and "Checkpointed epoch" in res[0]["log"]
                      and "Checkpointed epoch" not in res[1]["log"])
-        # K1's atomics sum in no fixed order and AMSGrad's first steps
-        # amplify that, so two one-process runs already differ: the
-        # params are held to the larger of 1e-5 and 3x that spread (the
-        # losses keep 1e-5).
-        repeat = _params_rel_l2(os.path.join(single, "checkpoints"),
-                                os.path.join(single_b, "checkpoints"), 2)
-        p_tol = max(DIST_TOL, 3 * repeat)
+        # The params of both two-rank runs against both one-process
+        # runs, at spread_bar's bar (the losses keep 1e-5).
+        ckpts = [os.path.join(o, "checkpoints") for o in
+                 (single, single_b, dist, res_b[0]["result"]["outdir"])]
+
+        def params_dist(a, b):
+            return _params_rel_l2(a, b, 2)
+
+        p_rel, p_spread, p_tol = spread_bar(ckpts[:2], ckpts[2:],
+                                            params_dist, DIST_TOL)
         a_ok = (_losses_close(ld, ls, DIST_TOL) and p_rel <= p_tol
                 and all(p == want for p in per_rank) and writes_ok)
         rec = dict(
@@ -2907,7 +2981,9 @@ def dist_phase(work, main_out, card):
                 part: _params_rel_l2(os.path.join(single, "checkpoints"),
                                      os.path.join(dist, "checkpoints"), 2,
                                      part) for part in ("net", "loss")},
-            one_process_repeat_params_rel_l2=repeat,
+            final_params_spread=p_spread,
+            one_process_repeat_params_rel_l2=params_dist(*ckpts[:2]),
+            two_ranks_repeat_params_rel_l2=params_dist(*ckpts[2:]),
             steps_per_rank=n_steps, vali_batches=n_vali,
             launches_per_rank=per_rank, launches_expected=want,
             only_rank0_writes=writes_ok,
@@ -3361,13 +3437,15 @@ GENERAL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 @contextlib.contextmanager
 def torch_default_switches():
     """cuDNN's and cuBLAS's TF32 switches at torch's defaults (cuDNN on,
-    matmul off) inside; the script runs with both off."""
+    matmul off) inside, eagerly (a graph replays what its capture chose);
+    the script runs with both off."""
     prev = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        yield
+        with graph.disabled():
+            yield
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = prev
@@ -3381,7 +3459,8 @@ def _flat_grads(state):
 @contextlib.contextmanager
 def image_grad(out):
     """Append to `out` the gradient of the image that the model's
-    planned resample warps (the prediction, float32), one per step."""
+    planned resample warps (the prediction, float32), one per step, of
+    eager steps (a replay runs no hook)."""
     from nlt_tpu_torch.ops import resample as rs
 
     orig = rs.resample_planned
@@ -3393,7 +3472,8 @@ def image_grad(out):
 
     rs.resample_planned = spy
     try:
-        yield
+        with graph.disabled():
+            yield
     finally:
         rs.resample_planned = orig
 
@@ -3528,7 +3608,8 @@ def compact_phase(card):
                 b, st = batches[i % 2], statics[name][i % 2]
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                steps[name](state0, b, st)
+                with graph.disabled():  # eager, as the steps above
+                    steps[name](state0, b, st)
                 torch.cuda.synchronize()
                 times[name].append((time.perf_counter() - t) * 1e3)
         emit(phase="compact_timing", card=card, dtype=dtype, bs=TRAIN_BS,
@@ -3802,8 +3883,8 @@ TILE_SERVE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # The tile trainvali run against one process, float32: per-epoch losses to
 # 1e-6 relative (the forward is the one-process forward on row blocks;
 # the U-Net's gradients are summed in another order, and K1's atomics
-# reorder from run to run); final params to max(1e-5, 3x one process's
-# run-to-run spread), as phase 10(a).
+# reorder from run to run); final params to max(1e-5, 3x the spread of
+# two runs of each), as phase 10(a) (spread_bar).
 TILE_TV_TOL = 1e-6
 # One bf16 step on n_data 2 x n_tile 2 ranks against one process on the
 # whole batch, at the port's bf16 step bar: the loss to 1e-4 relative,
@@ -4089,7 +4170,8 @@ def tile_phase(work, main_out, card):
     # (b) trainvali --n_tile 2 on phase 7's scene, float32, 2 epochs,
     # from phase 7's run, against one process with the statics cache off
     # as the tile run has it (the same code path but for the tile layer),
-    # in turns: tile, one process, tile (profiled), one process.
+    # in turns: tile, one process, tile (profiled), one process. The
+    # one-process runs are eager, as the tile ranks are (phase 10(a)).
     t0 = time.perf_counter()
     scene = os.path.join(work, "scene512")
     outroot = os.path.join(work, "tile")
@@ -4098,11 +4180,13 @@ def tile_phase(work, main_out, card):
             "cache_static=False")
     res = run_ranks("trainvali", work, rest=_dist_trainvali_argv(
         scene, outroot, "p12_tile", init_from) + ["--n_tile", "2"])
-    single, _ = run_trainvali(scene, outroot, "p12_single", *sets)
+    with graph.disabled():
+        single, _ = run_trainvali(scene, outroot, "p12_single", *sets)
     res_b = run_ranks("trainvali", work, opts=["--time-reduce"], rest=(
         _dist_trainvali_argv(scene, outroot, "p12_tile_b", init_from)
         + ["--n_tile", "2", "--profile"]))
-    single_b, _ = run_trainvali(scene, outroot, "p12_single_b", *sets)
+    with graph.disabled():
+        single_b, _ = run_trainvali(scene, outroot, "p12_single_b", *sets)
     b_ok = _ranks_ok(res) and _ranks_ok(res_b)
     rec = {}
     if b_ok:
@@ -4113,11 +4197,14 @@ def tile_phase(work, main_out, card):
                    _scalars(single, "vali")["loss_vali"])
         rel = max((abs(lt[e] - v) / abs(v) for e, v in ls.items()
                    if e in lt), default=float("inf"))
-        p_rel = _params_rel_l2(os.path.join(single, "checkpoints"),
-                               os.path.join(tile, "checkpoints"), 2)
-        repeat = _params_rel_l2(os.path.join(single, "checkpoints"),
-                                os.path.join(single_b, "checkpoints"), 2)
-        p_tol = max(DIST_TOL, 3 * repeat)
+        ckpts = [os.path.join(o, "checkpoints") for o in
+                 (single, single_b, tile, res_b[0]["result"]["outdir"])]
+
+        def params_dist(a, b):
+            return _params_rel_l2(a, b, 2)
+
+        p_rel, p_spread, p_tol = spread_bar(ckpts[:2], ckpts[2:],
+                                            params_dist, DIST_TOL)
         times = _epoch_times(tile)
         n_steps = sum(t["batches"] for t in times)
         n_vali = len(lv)
@@ -4139,7 +4226,9 @@ def tile_phase(work, main_out, card):
             loss_train_tile=lt, loss_train_one_process=ls,
             loss_vali_tile=lv, loss_vali_one_process=lvs,
             max_rel_diff=rel, rtol=TILE_TV_TOL, final_params_rel_l2=p_rel,
-            final_params_tol=p_tol, one_process_repeat_params_rel_l2=repeat,
+            final_params_tol=p_tol, final_params_spread=p_spread,
+            one_process_repeat_params_rel_l2=params_dist(*ckpts[:2]),
+            tile_repeat_params_rel_l2=params_dist(*ckpts[2:]),
             final_params_rel_l2_by_part={
                 part: _params_rel_l2(os.path.join(single, "checkpoints"),
                                      os.path.join(tile, "checkpoints"), 2,
@@ -4604,6 +4693,340 @@ def tile_options_phase(work, card):
     return bool(ok), launches
 
 
+# ---------------------------------------------------------------------------
+# 15. The compiled programs: CUDA graphs over in-place state
+# ---------------------------------------------------------------------------
+
+CAPTURE_STEPS = 6
+# 15(a)'s runs of each variant, in this order, from one state.
+CAPTURE_RUNS = ("eager_a", "captured_a", "eager_b", "captured_b",
+                "eager_c")
+# Captured against eager, each step's loss (relative) and the params
+# after the last step (relative L2): the larger of 1e-6 and 3x the
+# spread of the same steps (K1's atomics add in no fixed order, so two
+# runs need not agree bit for bit; spread_bar): the losses' spread that
+# of the eager runs, the params' the largest of two runs of either path.
+CAPTURE_FLOOR = 1e-6
+CAPTURE_PSNR_DB = 0.05
+CAPTURE_TV_EPOCHS = 2
+# A float32 server's captured answers against its eager ones, as a
+# fraction of the eager answer's largest magnitude.
+CAPTURE_SERVE_F32_TOL = 1e-6
+
+
+def _params_flat(state):
+    return torch.cat([p.detach().flatten().float()
+                      for p in tree_leaves(state["params"])])
+
+
+def _device_and_wall_ms(fn, n=3):
+    """(device ms, wall ms) of one fn() call, over n calls traced by
+    torch.profiler; device 'not measured' when it traced no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    total = 0.0
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA") \
+                or ev.key.startswith("nlt::"):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        total += dev_us / 1e3 / n
+    return (total if total > 0 else "not measured"), wall
+
+
+def _idle(dev, wall):
+    return 1 - dev / wall if isinstance(dev, float) else "not measured"
+
+
+# (a)'s variants: (label, compute dtype, .ini keys changed, steps,
+# launches a step, warp coverage of the batches). The recipe in both
+# dtypes, and the options that change the step's program: BatchNorm's
+# batch statistics and merge, remat's recompute, the compact plans'
+# take and scatter (on warps that leave room for their capacity, as
+# phase 11 runs them).
+CAPTURE_VARIANTS = (
+    ("recipe", "bfloat16", {}, CAPTURE_STEPS, TRAIN_LAUNCHES, 0.5),
+    ("recipe", "float32", {}, CAPTURE_STEPS, TRAIN_LAUNCHES, 0.5),
+    ("norm_batch", "bfloat16", {"norm": "batch"}, 3, NORM_LAUNCHES, 0.5),
+    ("remat", "bfloat16", {"remat": "true"}, 3, REMAT_LAUNCHES, 0.5),
+    ("compact_take", "bfloat16", {"take_compact_frac": COMPACT_FRAC,
+                                  "take_compact_route": "take"}, 3,
+     TRAIN_LAUNCHES, COMPACT_COVERAGE),
+    ("compact_scatter", "bfloat16", {"take_compact_frac": COMPACT_FRAC,
+                                     "take_compact_route": "scatter"}, 3,
+     TRAIN_LAUNCHES, COMPACT_COVERAGE))
+
+
+def capture_step_phase(card):
+    """15(a): the flagship recipe's donated step (bs 4, 512^2, cached
+    statics, barron + LPIPS), bf16 and float32, and the options that
+    change its program (CAPTURE_VARIANTS): the same steps eager,
+    captured and eager again from one state and one set of batches; the
+    captured steps counted. Returns (ok, launches)."""
+    ok, launches = True, {k: 0 for k in KERNELS}
+    for label, dtype, over, n_steps, want, coverage in CAPTURE_VARIANTS:
+        model = Model(options_cfg(dtype, **over), device="cuda")
+        tx = train_mod.make_optimizer(1e-3, -1)
+        state0 = train_mod.init_state(model, tx,
+                                      torch.Generator().manual_seed(0))
+        extract = train_mod.make_static_extractor(model)
+        batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                    make_batch(TRAIN_BS, RES, 80 + i,
+                               coverage=coverage).items()}
+                   for i in range(n_steps)]
+        statics = [extract(state0["params"], b) for b in batches]
+        step = train_mod.make_train_step(model, tx, cached_statics=True,
+                                         donate=True)
+        runs, per_step, peak = {}, [], {}
+        for name in CAPTURE_RUNS:
+            is_captured = name.startswith("captured")
+            state = tree_map(torch.clone, state0)
+            ptrs = [t.data_ptr() for t in tree_leaves(state)]
+            ctx = (contextlib.nullcontext() if is_captured
+                   else graph.disabled())
+            losses = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with ctx:
+                for b, st in zip(batches, statics):
+                    before = _launches()
+                    state, loss, _ = step(state, b, st)
+                    losses.append(float(loss))
+                    if is_captured:
+                        per_step.append({k: v - before[k]
+                                         for k, v in _launches().items()})
+            peak[name] = torch.cuda.max_memory_allocated()
+            in_place = [t.data_ptr() for t in tree_leaves(state)] == ptrs
+            runs[name] = (losses, _params_flat(state), in_place, state)
+        for p in per_step:
+            for k, v in p.items():
+                launches[k] += v
+        eager_runs = [n for n in CAPTURE_RUNS if n.startswith("eager")]
+        capt_runs = [n for n in CAPTURE_RUNS if n.startswith("captured")]
+
+        def loss_dist(a, b):
+            return max(abs(x - y) / abs(y)
+                       for x, y in zip(runs[a][0], runs[b][0]))
+
+        def params_dist(a, b):
+            return _rel_l2(runs[a][1], runs[b][1])
+
+        loss_rel, spread_loss, bar_loss = spread_bar(
+            eager_runs, capt_runs, loss_dist, CAPTURE_FLOOR,
+            tests_spread=False)
+        params_rel, spread_params, bar_params = spread_bar(
+            eager_runs, capt_runs, params_dist, CAPTURE_FLOOR)
+        in_place = all(r[2] for r in runs.values())
+        sg = runs[capt_runs[0]][3]
+        s_ok = (isinstance(step, graph.Captured) and step.replays > 0
+                and in_place and all(np.isfinite(runs[n][0]).all()
+                                     for n in capt_runs)
+                and loss_rel <= bar_loss and params_rel <= bar_params
+                and all(p == want for p in per_step))
+        emit(check="capture_step", card=card, variant=label, dtype=dtype,
+             bs=TRAIN_BS, steps=n_steps,
+             losses={n: runs[n][0] for n in CAPTURE_RUNS},
+             loss_rel=loss_rel, eager_spread_loss_rel=spread_loss,
+             loss_bar=bar_loss, params_rel_l2=params_rel,
+             spread_params_rel_l2=spread_params,
+             params_rel_l2_pairs={"%s|%s" % (a, b): params_dist(a, b)
+                                  for i, a in enumerate(CAPTURE_RUNS)
+                                  for b in CAPTURE_RUNS[i + 1:]},
+             params_bar=bar_params, state_in_place=bool(in_place),
+             captures=step.captures, replays=step.replays,
+             launches_per_step=per_step[-1], launches_expected=want,
+             peak_mem_bytes=peak, ok=bool(s_ok))
+        ok &= s_ok
+        if (label, dtype) == ("recipe", "bfloat16"):
+            # Eager and captured in turns, on the captured run's state
+            # (its graph's addresses) and a clone of it.
+            eager_state = tree_map(torch.clone, sg)
+            b, st = batches[0], statics[0]
+
+            def eager():
+                with graph.disabled():
+                    step(eager_state, b, st)
+
+            def captured():
+                step(sg, b, st)
+
+            medians, times = time_in_turns({"eager": eager,
+                                            "captured": captured})
+            prof = {name: _device_and_wall_ms(fn) for name, fn in
+                    (("eager", eager), ("captured", captured))}
+            emit(phase="capture_step_timing", card=card, dtype=dtype,
+                 bs=TRAIN_BS, median_ms=medians, step_ms=times,
+                 device_ms={k: v[0] for k, v in prof.items()},
+                 profiled_wall_ms={k: v[1] for k, v in prof.items()},
+                 idle_share={k: _idle(*v) for k, v in prof.items()},
+                 replays=step.replays)
+        del model, state0, statics, step, runs, sg
+        torch.cuda.empty_cache()
+    return bool(ok), launches
+
+
+def capture_trainvali_phase(work, card):
+    """15(b): phase 7's trainvali run for CAPTURE_TV_EPOCHS epochs, eager
+    and captured in turns (eager, captured, captured profiled, eager
+    profiled). Returns (ok, launches of the first captured run)."""
+    scene = os.path.join(work, "scene512")
+    outroot = os.path.join(work, "out")
+    sets = ("epochs=%d" % CAPTURE_TV_EPOCHS,)
+    runs, launches = {}, {}
+    for name, captured, profile in (("eager_a", False, False),
+                                    ("captured_a", True, False),
+                                    ("captured_b", True, True),
+                                    ("eager_b", False, True)):
+        before = dict(graph.REPLAYS)
+        _reset_launches()
+        with (contextlib.nullcontext() if captured else graph.disabled()):
+            out, seconds = run_trainvali(scene, outroot, "p15_" + name,
+                                         *sets, profile=profile)
+        if name == "captured_a":
+            launches = _launches()
+        replays = {k: v - before.get(k, 0) for k, v in graph.REPLAYS.items()
+                   if v != before.get(k, 0)}
+        times = _epoch_times(out)[1:]
+        rec = {"loss_train": _scalars(out, "train")["loss_train"],
+               "psnr_vali": _scalars(out, "vali").get("psnr_vali", {}),
+               "warm_s_per_batch": [t["train_s"] / max(t["batches"], 1)
+                                    for t in times],
+               "warm_step_dispatch_s_per_batch": [
+                   t["step_s"] / max(t["batches"], 1) for t in times],
+               "seconds": seconds, "replays": replays}
+        if profile:
+            with open(os.path.join(out, "profile", "summary.json")) as h:
+                p = json.load(h)
+            rec["idle_share"] = (1 - p["device_s"] / p["wall_s"]
+                                 if p["device_s"] > 0 else "not measured")
+            rec["profiled_device_s"] = p["device_s"]
+            rec["profiled_wall_s"] = p["wall_s"]
+        runs[name] = rec
+    eager, capt = ["eager_a", "eager_b"], ["captured_a", "captured_b"]
+
+    def loss_dist(a, b):
+        la, lb = runs[a]["loss_train"], runs[b]["loss_train"]
+        return max((abs(la[e] - lb[e]) / abs(lb[e]) for e in lb),
+                   default=float("inf"))
+
+    loss_rel, spread, bar = spread_bar(eager, capt, loss_dist,
+                                       CAPTURE_FLOOR, tests_spread=False)
+    psnr_diff = max((abs(runs[c]["psnr_vali"][e] - runs[r]["psnr_vali"][e])
+                     for c in capt for r in eager
+                     for e in runs[r]["psnr_vali"]), default=float("inf"))
+    replayed = all(any("train step" in k for k in runs[n]["replays"])
+                   and any("eval step" in k for k in runs[n]["replays"])
+                   for n in capt)
+    eager_clean = not any(runs[n]["replays"] for n in eager)
+    t_ok = (all(sorted(r["loss_train"]) == list(range(
+        1, CAPTURE_TV_EPOCHS + 1)) for r in runs.values())
+            and loss_rel <= bar and psnr_diff <= CAPTURE_PSNR_DB
+            and replayed and eager_clean)
+    emit(check="capture_trainvali", card=card, config=TV_CONFIG,
+         epochs=CAPTURE_TV_EPOCHS, runs=runs, loss_rel=loss_rel,
+         eager_spread_loss_rel=spread, loss_bar=bar,
+         psnr_vali_max_diff_db=psnr_diff, psnr_tol_db=CAPTURE_PSNR_DB,
+         launches=launches, ok=bool(t_ok))
+    return bool(t_ok), launches
+
+
+def capture_serve_phase(pyramid, card):
+    """15(c): phase 5's serving shape (512^2, depth 256, bf16, the baked
+    pyramid), bs 1 and 4, streamed and from the input cache (ids=):
+    captured answers against eager ones (uint8 bit-equal; a float32
+    server's within CAPTURE_SERVE_F32_TOL of scale), the captured
+    requests counted; latency, fps, device ms and idle share, eager and
+    captured in turns. Returns (ok, launches)."""
+    ok, launches = True, {k: 0 for k in KERNELS}
+    for pack in ("uint8", None):
+        server = make_server(True, "bfloat16", "cuda", pyramid, pack=pack)
+        ok &= isinstance(server._program, graph.Captured)
+        for bs in (1, 4):
+            req = make_batch(bs, RES, seed=90 + bs)
+            ids = ["p15_%d_%d" % (bs, i) for i in range(bs)]
+            for use in (None, ids):
+                with graph.disabled():
+                    want = server.predict(req, ids=use)
+                server.predict(req, ids=use)   # warm-up
+                _reset_launches()
+                got = [server.predict(req, ids=use) for _ in range(3)]
+                per = _launches()
+                if pack is not None:
+                    for k in per:
+                        launches[k] += per[k]
+                if pack is None:
+                    err = max(_rel_max(g[k], want[k]) for g in got
+                              for k in want)
+                    a_ok = err <= CAPTURE_SERVE_F32_TOL
+                else:
+                    err = None
+                    a_ok = all(_bit_equal(g, want) for g in got)
+                l_ok = per == {k: 3 * QUERY_LAUNCHES.get(k, 0)
+                               for k in KERNELS}
+                rec = {"pack": pack, "bs": bs, "cached": use is not None,
+                       "equal_to_eager": a_ok, "rel_max": err,
+                       "launches_three_requests": per}
+                if pack is not None:
+                    stats, prof = {}, {}
+                    for path in ("eager", "captured", "captured", "eager"):
+                        ctx = (graph.disabled() if path == "eager"
+                               else contextlib.nullcontext())
+                        with ctx:
+                            b = server.benchmark(req, n=20, ids=use)
+                            prof.setdefault(path, []).append(
+                                _device_and_wall_ms(
+                                    lambda: server.predict(req, ids=use)))
+                        stats.setdefault(path, []).append(
+                            (b["latency_s"] * 1e3, b["fps"]))
+                    rec.update(
+                        latency_ms={p: [x[0] for x in v]
+                                    for p, v in stats.items()},
+                        fps={p: [x[1] for x in v] for p, v in stats.items()},
+                        device_ms={p: [x[0] for x in v]
+                                   for p, v in prof.items()},
+                        idle_share={p: [_idle(*x) for x in v]
+                                    for p, v in prof.items()})
+                rec["replays"] = server._program.replays
+                r_ok = a_ok and l_ok and server._program.replays > 0
+                emit(check="capture_serve", card=card, ok=bool(r_ok), **rec)
+                ok &= r_ok
+        del server
+        torch.cuda.empty_cache()
+    return bool(ok), launches
+
+
+def capture_phase(work, main_out, pyramid, card):
+    """15. Returns (ok, {path: launches})."""
+    t0 = time.perf_counter()
+    a_ok, a_l = capture_step_phase(card)
+    emit(phase="capture_step_all", seconds=time.perf_counter() - t0,
+         ok=bool(a_ok))
+    t1 = time.perf_counter()
+    b_ok, b_l = (capture_trainvali_phase(work, card) if main_out
+                 else (False, {}))
+    emit(phase="capture_trainvali_all", seconds=time.perf_counter() - t1,
+         ok=bool(b_ok))
+    t1 = time.perf_counter()
+    c_ok, c_l = capture_serve_phase(pyramid, card)
+    emit(phase="capture_all", seconds=time.perf_counter() - t0,
+         serve_seconds=time.perf_counter() - t1,
+         ok=bool(a_ok and b_ok and c_ok))
+    return bool(a_ok and b_ok and c_ok), {
+        "captured_steps": a_l, "captured_trainvali": b_l,
+        "captured_requests": c_l}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     for kind in ("expand", "contract"):
@@ -4739,49 +5162,52 @@ def main(argv=None):
     # 5. Serving latency and throughput, and where a request's time goes;
     # the stages of each op on the tiled route against this run's routes,
     # in turns (tiled, run, run, tiled), the other op on its run route.
-    for kind, tag in (("expand_stage", "expand"),
-                      ("contract_stage", "contract")):
-        route = ROUTES[kind]
-        for r in ("tiled", route, route, "tiled"):
-            set_route(kind, r)
-            label = "%s_route_%s" % (tag, r)
-            profile_requests(server, reqs1[0], label=label)
-            profile_requests(server, req4, label=label)
-            profile_requests(nopyr, reqs1[0], label="no_pyramid_" + label)
-            for name, srv in (("kernels", server),
-                              ("kernels_no_pyramid", nopyr)):
-                for req in (reqs1[0], req4):
-                    stats = srv.benchmark(req, n=20)
-                    emit(phase="serving_benchmark", path=name,
-                         **{tag + "_route": r},
-                         bs=int(req["base"].shape[0]), pack="uint8",
-                         latency_ms=stats["latency_s"] * 1e3,
-                         fps=stats["fps"])
-        set_route(kind, route)
-    for name, srv in (("plain", plain), ("plain_no_pyramid", nopyr_plain)):
-        for req in (reqs1[0], req4):
-            stats = srv.benchmark(req, n=20)
-            emit(phase="serving_benchmark", path=name,
-                 bs=int(req["base"].shape[0]), pack="uint8",
-                 latency_ms=stats["latency_s"] * 1e3, fps=stats["fps"])
-    # The stage ops' dispatch: through the registered custom ops (the
-    # port's path) against a direct ctypes launch, in turns; bs-1 latency
-    # and the host time of one stage call (a tiny stage, so the host, not
-    # the device, sets the pace of 500 calls queued back to back).
-    tiny = random_stage(1, 4, 4, 16, 16, torch.float32, seed=5)
-    for d in ("direct", "op", "library", "library", "op", "direct"):
-        with stage_dispatch(d):
-            stats = server.benchmark(reqs1[0], n=20)
-            fs.contract_stage(*tiny)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(500):
+    # Eager, as before graphs: the routes and the dispatch are chosen
+    # in Python at each call (phase 15 times the captured requests).
+    with graph.disabled():
+        for kind, tag in (("expand_stage", "expand"),
+                          ("contract_stage", "contract")):
+            route = ROUTES[kind]
+            for r in ("tiled", route, route, "tiled"):
+                set_route(kind, r)
+                label = "%s_route_%s" % (tag, r)
+                profile_requests(server, reqs1[0], label=label)
+                profile_requests(server, req4, label=label)
+                profile_requests(nopyr, reqs1[0], label="no_pyramid_" + label)
+                for name, srv in (("kernels", server),
+                                  ("kernels_no_pyramid", nopyr)):
+                    for req in (reqs1[0], req4):
+                        stats = srv.benchmark(req, n=20)
+                        emit(phase="serving_benchmark", path=name,
+                             **{tag + "_route": r},
+                             bs=int(req["base"].shape[0]), pack="uint8",
+                             latency_ms=stats["latency_s"] * 1e3,
+                             fps=stats["fps"])
+            set_route(kind, route)
+        for name, srv in (("plain", plain), ("plain_no_pyramid", nopyr_plain)):
+            for req in (reqs1[0], req4):
+                stats = srv.benchmark(req, n=20)
+                emit(phase="serving_benchmark", path=name,
+                     bs=int(req["base"].shape[0]), pack="uint8",
+                     latency_ms=stats["latency_s"] * 1e3, fps=stats["fps"])
+        # The stage ops' dispatch: through the registered custom ops (the
+        # port's path) against a direct ctypes launch, in turns; bs-1 latency
+        # and the host time of one stage call (a tiny stage, so the host, not
+        # the device, sets the pace of 500 calls queued back to back).
+        tiny = random_stage(1, 4, 4, 16, 16, torch.float32, seed=5)
+        for d in ("direct", "op", "library", "library", "op", "direct"):
+            with stage_dispatch(d):
+                stats = server.benchmark(reqs1[0], n=20)
                 fs.contract_stage(*tiny)
-            host_us = (time.perf_counter() - t0) / 500 * 1e6
-            torch.cuda.synchronize()
-        emit(phase="serving_dispatch", dispatch=d, bs=1, pack="uint8",
-             latency_ms=stats["latency_s"] * 1e3, fps=stats["fps"],
-             stage_call_host_us=host_us, stage_x=list(tiny[0].shape))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(500):
+                    fs.contract_stage(*tiny)
+                host_us = (time.perf_counter() - t0) / 500 * 1e6
+                torch.cuda.synchronize()
+            emit(phase="serving_dispatch", dispatch=d, bs=1, pack="uint8",
+                 latency_ms=stats["latency_s"] * 1e3, fps=stats["fps"],
+                 stage_call_host_us=host_us, stage_x=list(tiny[0].shape))
 
     # 6. Training: the flagship recipe's steps.
     t0 = time.perf_counter()
@@ -4831,6 +5257,10 @@ def main(argv=None):
         # 13. The tile axis for every U-Net option.
         opt13_ok, opt13_launches = tile_options_phase(work, card)
         ok &= opt13_ok
+
+        # 15. The compiled programs: captured against eager.
+        cap_ok, cap_launches = capture_phase(work, main_out, pyramid, card)
+        ok &= cap_ok
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4853,6 +5283,8 @@ def main(argv=None):
                         for p, v in tile_launches.items()})
         by_path.update({p: v.get(kind, 0)
                         for p, v in opt13_launches.items()})
+        by_path.update({p: v.get(kind, 0)
+                        for p, v in cap_launches.items()})
         kernels.append({
             "name": kind, "route": "cuda", "source": SOURCES[kind],
             "replaces": REPLACES[kind], "launches": sum(by_path.values()),
@@ -4905,6 +5337,13 @@ def main(argv=None):
             ok &= all(opt13_launches.get("tile_remat_%s_rank%d" % (d, r),
                                          {}).get(kind, 0) > 0
                       for d in ("float32", "bfloat16") for r in range(2))
+        # Phase 15: the captured steps and trainvali run replay K2, K3
+        # and K1, the captured requests K2 and K3.
+        if kind != "conv2x2s2_lrelu":
+            ok &= all(cap_launches.get(p, {}).get(kind, 0) > 0 for p in (
+                "captured_steps", "captured_trainvali"))
+        if kind in QUERY_LAUNCHES:
+            ok &= cap_launches.get("captured_requests", {}).get(kind, 0) > 0
         # Phase 9: every path runs K1; the fused-stage paths K2 and K3.
         for p, v in opt_launches.items():
             if kind == "scatter_add_rows" or (
@@ -4929,10 +5368,13 @@ def main(argv=None):
               "12's tile ranks (a bs-1 request of each rank of the 2- and "
               "4-rank tile servers, each rank's --n_tile 2 trainvali run, "
               "each rank's n_data 2 x n_tile 2 step) and phase 13's "
-              "(each tile rank's remat step, float32 and bf16), each "
-              "counted from 0")
+              "(each tile rank's remat step, float32 and bf16) and phase "
+              "15's captured paths (the donated steps, the trainvali run, "
+              "the requests; replays add what their capture counted), "
+              "each counted from 0")
     if not ok:
-        print("chip_smoke: FAILED", file=sys.stderr)
+        print("chip_smoke: FAILED (%s)" % ", ".join(map(str, FAILED)),
+              file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,8 @@ and cast to the images' dtype, applied per channel with VALID padding;
 k1 = 0.01, k2 = 0.03; the mean over channels and windows, one value per
 image."""
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -16,6 +18,15 @@ def _gaussian_window(size, sigma):
     return np.outer(g, g)
 
 
+@functools.lru_cache(maxsize=None)
+def _window(filter_size, filter_sigma, dtype, device):
+    """The Gaussian window on `device`, copied there once: a copy from
+    host memory in the step would wait for the device (and cannot be
+    captured in a CUDA graph)."""
+    return torch.as_tensor(_gaussian_window(filter_size, filter_sigma),
+                           dtype=dtype, device=device)
+
+
 def ssim(img1, img2, max_val=1.0, filter_size=11, filter_sigma=1.5,
          k1=0.01, k2=0.03):
     """Per-image SSIM of (N, H, W, C) batches; returns shape (N,)."""
@@ -24,8 +35,7 @@ def ssim(img1, img2, max_val=1.0, filter_size=11, filter_sigma=1.5,
                          "got %s and %s" % (tuple(img1.shape),
                                             tuple(img2.shape)))
     c = img1.shape[3]
-    win = torch.as_tensor(_gaussian_window(filter_size, filter_sigma),
-                          dtype=img1.dtype, device=img1.device)
+    win = _window(filter_size, filter_sigma, img1.dtype, img1.device)
     kern = win.expand(c, 1, filter_size, filter_size)
 
     def filt(x):

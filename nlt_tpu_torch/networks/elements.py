@@ -63,7 +63,7 @@ def _glorot_uniform(gen, shape):
 def lrelu(x, slope=LEAKYRELU_SLOPE):
     """where(x >= 0, x, slope * x) with the slope rounded to x's dtype, as
     jax evaluates a weakly typed scalar (under bf16 it is 0.30078125)."""
-    slope = float(torch.tensor(slope, dtype=x.dtype))
+    slope = float(torch.tensor(slope, dtype=x.dtype, device="cpu"))
     return torch.where(x >= 0, x, x * slope)
 
 

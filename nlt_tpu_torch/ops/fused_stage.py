@@ -52,7 +52,8 @@ CUDA cores in float32.
 On a CPU tensor each op runs its plain PyTorch version
 (``contract_stage_ref`` / ``expand_stage_ref``, straight ports of the
 JAX references); on a CUDA tensor it launches its kernel or raises.
-``LAUNCHES`` counts kernel launches per op (one per call, either route).
+``LAUNCHES`` counts kernel launches per op (one per call, either route;
+a CUDA graph replay adds what its capture counted).
 An inference call (no gradient, y2 alone) goes through the op
 registered with ``torch.library`` (``OPS``:
 ``nlt_tpu_torch::contract_stage`` / ``::expand_stage``): its CUDA
@@ -84,8 +85,11 @@ import types
 import torch
 
 from ..networks.elements import _matmul_f32, lrelu
+from ..parallel import graph
 
-LAUNCHES = {"contract_stage": 0, "expand_stage": 0}
+# Kernel launches per op; a CUDA graph replay adds what its capture
+# counted (parallel/graph.py).
+LAUNCHES = graph.launch_counter({"contract_stage": 0, "expand_stage": 0})
 
 _SMS = 132                # streaming multiprocessors of an H100 SXM
 _SMEM_MAX = 232448        # dynamic shared memory a block may use

@@ -22,14 +22,18 @@ order" allows.
 
 On a CPU tensor the op runs its plain version (``scatter_add_rows_ref``,
 ``index_add_`` with skipped updates sent to a dump row); on a CUDA tensor
-it launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+it launches the kernel or raises. ``LAUNCHES`` counts kernel launches
+(a CUDA graph replay adds what its capture counted).
 """
 
 import ctypes
 
 import torch
 
-LAUNCHES = {"scatter_add_rows": 0}
+from ..parallel import graph
+
+# A CUDA graph replay adds what its capture counted (parallel/graph.py).
+LAUNCHES = graph.launch_counter({"scatter_add_rows": 0})
 
 
 def reset_launches():

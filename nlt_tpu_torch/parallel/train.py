@@ -5,9 +5,19 @@ ema_params]}. A step runs forward, loss and backward eagerly, then the
 optimizer: AMSGrad exactly as optax 0.2.6 ``scale_by_amsgrad`` computes
 it (the max is taken over the bias-corrected second moment, which is
 where ``torch.optim.Adam(amsgrad=True)`` differs), preceded by
-``clip_by_global_norm(mgm)`` when mgm > 0. Every step function returns a
-new state; nothing is updated in place, so a guarded step (nan_guard)
-can keep the old one.
+``clip_by_global_norm(mgm)`` when mgm > 0. The step computes a new
+state beside the old one, so a guarded step (nan_guard) can keep the
+old one; with ``donate=True`` it then writes the new values into the
+old state's own tensors (``torch._foreach_copy_``), nlt_tpu's donation,
+and returns a state whose leaves are the input's tensors.
+
+On the card the training and eval steps run as CUDA graphs
+(``parallel/graph.py``, nlt_tpu's jit): one graph per input shape,
+replayed, the donated state used in place and every other input copied
+into the graph's buffers; what stays eager is decided once, by
+``graph.eager_reason`` (the CPU, a mesh over a process group, a
+stochastic loss). Outputs follow the runner's contract: the loss and
+``to_vis`` are fresh tensors on every call.
 
 The loss network's weights (LPIPS) are detached inside the loss, so they
 get no gradient; the optimizer walks them with zero gradients, as optax
@@ -49,7 +59,7 @@ import torch
 
 from ..networks import elements
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
-from . import halo
+from . import graph, halo
 
 # optax.amsgrad's defaults (eps_root 0).
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -177,7 +187,8 @@ def _mean_taps(taps):
 
 
 def make_train_step(model, tx, with_vis=True, cached_statics=False,
-                    grad_accum=1, nan_guard=False, ema_decay=0.0, mesh=None):
+                    grad_accum=1, nan_guard=False, ema_decay=0.0, mesh=None,
+                    donate=False):
     """train_step(state, batch[, statics]) -> (state, loss, to_vis), or
     (state, loss) without vis. batch: dict of tensors on the model's
     device (this rank's block of the global batch under a mesh of
@@ -195,6 +206,12 @@ def make_train_step(model, tx, with_vis=True, cached_statics=False,
     nan_guard: a step whose loss or any gradient is non-finite keeps the
     previous params and optimizer state, BN moving statistics included
     (step still advances; the loss is returned as it was).
+
+    donate: the step writes the new state into `state`'s tensors and
+    returns them (the caller's old state is gone, as under nlt_tpu's
+    donate_argnums); else it returns new tensors and leaves `state` as
+    it was. On the card the step is a ``graph.Captured`` program unless
+    ``graph.eager_reason`` keeps it eager.
     """
     stochastic = model.has_stochastic_loss()
     # The step counter on the host, for the stochastic losses' seeds: read
@@ -294,8 +311,6 @@ def make_train_step(model, tx, with_vis=True, cached_statics=False,
                 (new_params, opt_state), (params, state["opt_state"]))
         new_state = {"params": new_params, "opt_state": opt_state,
                      "step": state["step"] + 1}
-        if stochastic:
-            host_step.update(tensor=new_state["step"], value=step + 1)
         if "ema_params" in state:
             # d and 1 - d taken in float32, as nlt_tpu does.
             d = np.float32(ema_decay)
@@ -303,13 +318,24 @@ def make_train_step(model, tx, with_vis=True, cached_statics=False,
                 lambda e, p: (float(d) * e.float() + float(np.float32(1) - d)
                               * p.float()).to(e.dtype),
                 state["ema_params"], new_params)
+        if donate:
+            torch._foreach_copy_(
+                [t for k in new_state for t in tree_leaves(state[k])],
+                [t for k in new_state for t in tree_leaves(new_state[k])])
+            new_state = state
+        if stochastic:
+            host_step.update(tensor=new_state["step"], value=step + 1)
         if with_vis:
             return new_state, loss, to_vis
         return new_state, loss
 
+    reason = graph.eager_reason(model.device, model=model, mesh=mesh)
+    by_address = (0,) if donate else ()
     if cached_statics:
-        return train_step
-    return lambda state, batch: train_step(state, batch)
+        return graph.wrap(train_step, "train step (cached statics)", reason,
+                          by_address)
+    return graph.wrap(lambda state, batch: train_step(state, batch),
+                      "train step", reason, by_address)
 
 
 def make_static_extractor(model):
@@ -337,7 +363,8 @@ def make_eval_step(model, mesh=None):
     E-LPIPS on its fixed seed. sharded: the batch is this rank's block of
     a batch split over the mesh's ranks, and the loss returned is the
     mean over the ranks (the whole batch's); a replicated batch's loss is
-    its own."""
+    its own. On the card a ``graph.Captured`` program reading the state
+    where it lies, unless ``graph.eager_reason`` keeps it eager."""
 
     @torch.no_grad()
     def eval_step(state, batch, sharded=False):
@@ -350,4 +377,6 @@ def make_eval_step(model, mesh=None):
             mesh.all_reduce_mean_([loss])
         return loss, to_vis
 
-    return eval_step
+    return graph.wrap(eval_step, "eval step",
+                      graph.eager_reason(model.device, model=model,
+                                         mesh=mesh), by_address=(0,))

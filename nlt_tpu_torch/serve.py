@@ -28,6 +28,11 @@ nlt_tpu/serve.py).
   observation pyramid (computed whole on every rank), and gathers the
   prediction; the resample to camera space and the packing then run
   whole on every rank, so every rank returns the same answer;
+- on the card a request's forward is a CUDA graph per batch size
+  (``parallel/graph.py``, nlt_tpu's jitted forward): the request's
+  arrays are copied into the graph's buffers, the params and the baked
+  pyramid are read where they lie, and every call returns fresh output
+  tensors; a sharded server stays eager (``graph.eager_reason``);
 - ``export`` writes the serving program, weights and pyramid included,
   as a bundle of ``torch.export`` programs, one per batch size, that
   ``ExportedServer`` serves without the model code, config or
@@ -56,6 +61,7 @@ import argparse
 import io
 import json
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -65,7 +71,7 @@ from . import resolve_device
 from .nlt_test import extract_feat, get_config_ini, restore_model, \
     tile_pyramid
 from .parallel import device_cache as device_cache_mod
-from .parallel import halo
+from .parallel import graph, halo
 from .parallel import mesh as mesh_mod
 from .trainvali import add_dist_args, init_dist
 from .utils import config as config_mod
@@ -131,6 +137,14 @@ class Server:
         self.fields = fields
         self._feat_agg = None
         self._override = {}  # bs -> obs pyramid tiled to the batch
+        # The program holds the server weakly: a runner that held the
+        # bound method would keep the server, its graphs and their pool
+        # alive until the garbage collector found the cycle.
+        server = weakref.ref(self)
+        self._program = graph.wrap(
+            lambda *a: server()._compute(*a), "serving forward",
+            graph.eager_reason(self.device, mesh=self.mesh),
+            by_address=(0, 1))
         # Request inputs are a pure function of the example id (the
         # dataset contract), so repeat queries can skip the upload.
         self._input_cache = device_cache_mod.DeviceExampleCache(
@@ -180,25 +194,24 @@ class Server:
             return self._input_cache.shard_batch(arrays, list(ids)), sharded
         return device_cache_mod.upload(arrays, self.device), sharded
 
-    def _compute(self, params, override, arrays):
+    def _compute(self, params, override, arrays, fields, pack):
         """Device-side prediction of placed arrays: {field: tensor}."""
-        fields = self.fields or FIELDS
         with torch.no_grad(), halo.tile_rows(self.mesh):
             _, _, _, to_vis = self.model.apply(
                 params, arrays, "test", obs_override=override,
                 outputs=fields)
             out = {k: to_vis[k] for k in fields}
-            if self.pack is not None:
-                out = imgutil.pack_vis(out,
-                                       linear_space=self.pack == "float16")
+            if pack is not None:
+                out = imgutil.pack_vis(out, linear_space=pack == "float16")
         return out
 
     def _forward(self, arrays, sharded=False):
         """The prediction of placed arrays; sharded: they are this rank's
         block, and every rank's rows are gathered to it."""
-        out = self._compute(self.state["params"],
+        # fields and pack are arguments, so a graph is keyed on them.
+        out = self._program({"net": self.state["params"]["net"]},
                             self._override_for(arrays["base"].shape[0]),
-                            arrays)
+                            arrays, tuple(self.fields or FIELDS), self.pack)
         return self.mesh.gather_rows(out) if sharded else out
 
     def invalidate(self, ids=None):
@@ -309,7 +322,9 @@ class _ServingProgram(torch.nn.Module):
         net = tree_unflatten(self._net, [getattr(self, "param%d" % i)
                                          for i in range(self._n_params)])
         override = [getattr(self, "obs%d" % i) for i in range(self._n_obs)]
-        return self._server._compute({"net": net}, override or None, arrays)
+        return self._server._compute(
+            {"net": net}, override or None, arrays,
+            tuple(self._server.fields or FIELDS), self._server.pack)
 
 
 class ExportedServer:

@@ -23,6 +23,10 @@ The port's ways:
   0-d device tensor, and the epoch's losses are fetched in one copy at
   its end; vis is packed on the device and copied into pinned host
   buffers without blocking, then read after its CUDA event;
+- on the card the training and eval steps are CUDA graphs, one per
+  batch shape, over the state's own tensors (the steps donate; see
+  ``parallel/graph.py`` for the rule that keeps a run eager: a mesh over
+  a process group, a stochastic loss);
 - placement is an upload from pinned memory with ``non_blocking=True``,
   or, from an example's second sight on, the device cache's assembly;
 - ``<outdir>/epoch_times.jsonl`` records per epoch where the host's time
@@ -514,9 +518,13 @@ def _main(args, device, mesh):
     mesh.broadcast_tree(state)
 
     nan_guard = config.get_bool("nan_guard", False)
+    # The steps donate: they write each step's state into `state`'s own
+    # tensors and return them, and a captured step reads and writes them
+    # where they lie, so the tensors bound above (restore, warm start,
+    # broadcast) stay the run's state.
     train_step = train_mod.make_train_step(
         model, tx, grad_accum=grad_accum, nan_guard=nan_guard,
-        ema_decay=ema_decay, mesh=mesh)
+        ema_decay=ema_decay, mesh=mesh, donate=True)
     eval_step = train_mod.make_eval_step(model, mesh=mesh)
 
     # Static per-example cache (gt loss features, warp products and the
@@ -538,7 +546,8 @@ def _main(args, device, mesh):
             # Each rank caches its own examples (its cap is per rank).
             train_step_cached = train_mod.make_train_step(
                 model, tx, cached_statics=True, grad_accum=grad_accum,
-                nan_guard=nan_guard, ema_decay=ema_decay, mesh=mesh)
+                nan_guard=nan_guard, ema_decay=ema_decay, mesh=mesh,
+                donate=True)
             extract_statics = train_mod.make_static_extractor(model)
 
     device_cache = None

@@ -105,6 +105,15 @@ def _weight_mat(in_size, out_size, method):
     return torch.where(inside[None, :], weights, torch.zeros_like(weights))
 
 
+@functools.lru_cache(maxsize=None)
+def _weight_mat_on(in_size, out_size, method, dtype, device):
+    """_weight_mat in `dtype` on `device`, copied there once: a copy from
+    host memory in the step would wait for the device (and cannot be
+    captured in a CUDA graph)."""
+    return _weight_mat(in_size, out_size, method).to(device=device,
+                                                     dtype=dtype)
+
+
 def _nearest_index(in_size, out_size, device):
     """jax.image.resize's nearest rule, in float32 as jax computes it."""
     pos = ((torch.arange(out_size, dtype=torch.float32, device=device) + 0.5)
@@ -127,7 +136,7 @@ def _resize_nhwc(x, new_h, new_w, method):
                          % (method, ", ".join(RESIZE_METHODS)))
 
     def mat(n, m):
-        return _weight_mat(n, m, method).to(device=x.device, dtype=x.dtype)
+        return _weight_mat_on(n, m, method, x.dtype, x.device)
 
     if new_h != h and new_w != w:
         return torch.einsum("nhwc,hH,wW->nHWc", x, mat(h, new_h),
