@@ -11,14 +11,18 @@ Stateful losses carry their state explicitly (Barron's latent alpha and
 scale when trainable, LPIPS's network weights), so it lives in the
 params tree under ``params['loss']``. E-LPIPS is stochastic
 (``stochastic = True``): it takes a CPU ``torch.Generator`` to draw its
-transforms from. The forwards are marked for the profiler
-(``nlt::barron``, ``nlt::lpips``, ``nlt::ssim``, ``nlt::elpips``).
+transforms from. The forwards are spans for the profiler
+(``utils/trace.py``: ``nlt::barron``, ``nlt::lpips``, ``nlt::ssim``,
+``nlt::elpips``). They exist only in eager steps: a CUDA graph's replay
+runs no host code, so a captured step's trace holds its kernels but not
+these ranges.
 """
 
 import torch
 
 from ..utils import logging as logutil
 from ..utils.img import alpha_blend, resize, rgb_to_yuv
+from ..utils.trace import span
 from ..utils.tree import tree_map
 from . import adaptive as _adaptive
 from . import elpips as _elpips
@@ -89,7 +93,7 @@ class SSIM:
         if weights is not None:
             gt = alpha_blend(gt, weights)
             pred = alpha_blend(pred, weights)
-        with torch.profiler.record_function("nlt::ssim"):
+        with span("ssim"):
             loss = (1.0 - _ssim.ssim(gt, pred,
                                      max_val=self.dynamic_range)) / 2.0
         return loss if keep_batch else loss.mean()
@@ -123,7 +127,7 @@ class Barron:
         if weights is not None:
             gt = alpha_blend(gt, weights)
             pred = alpha_blend(pred, weights)
-        with torch.profiler.record_function("nlt::barron"):
+        with span("barron"):
             return _reduce(self.func(params, gt - pred), keep_batch)
 
 
@@ -176,7 +180,7 @@ class LPIPS:
 
     def __call__(self, params, gt, pred, keep_batch=False, weights=None,
                  gt_feats=None):
-        with torch.profiler.record_function("nlt::lpips"):
+        with span("lpips"):
             return self._distance(params, gt, pred, keep_batch, weights,
                                   gt_feats)
 
@@ -245,7 +249,7 @@ class ELPIPS(LPIPS):
             gt = alpha_blend(gt, weights)
             pred = alpha_blend(pred, weights)
         params = tree_map(torch.Tensor.detach, params)
-        with torch.profiler.record_function("nlt::elpips"):
+        with span("elpips"):
             total = 0.0
             for d in draws:
                 total = total + _lpips.lpips(

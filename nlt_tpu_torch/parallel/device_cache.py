@@ -13,6 +13,13 @@ Uploads go through pinned host memory with ``non_blocking=True`` (the
 copy engine overlaps the device's work); ``upload`` is also the plain
 placement of an uncached batch.
 
+Spans (``utils/trace.py``, while a profiler runs): ``shard_batch`` is
+``device_cache.shard_batch``; inside ``upload`` each field's staging
+into pinned memory is ``upload.pin`` and its copy ``upload.copy`` (the
+enqueued copy; on the CPU the clone). ``UPLOADS`` counts ``upload``
+calls and the bytes they place; the bytes are also the count
+``upload.bytes`` in the trace's log.
+
 Capacity-capped (``cache_device_mb``): once the cap is reached further
 examples stream as before.
 
@@ -30,8 +37,13 @@ import numpy as np
 import torch
 
 from ..utils import logging as logutil
+from ..utils import trace
+from ..utils.trace import span
 
 logger = logutil.Logger(loggee="parallel/device_cache")
+
+# upload() calls and the bytes of the arrays they placed, over the process.
+UPLOADS = {"uploads": 0, "bytes": 0}
 
 
 def upload(arrays, device):
@@ -40,13 +52,21 @@ def upload(arrays, device):
     caching host allocator keeps each pinned buffer until its copy is
     done. CPU: a copy (the loader's buffers are not aliased)."""
     device = torch.device(device)
-    out = {}
+    out, nbytes = {}, 0
     for k, v in arrays.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
+        nbytes += t.nbytes
         if device.type == "cuda":
-            out[k] = t.pin_memory().to(device, non_blocking=True)
+            with span("upload.pin"):
+                t = t.pin_memory()
+            with span("upload.copy"):
+                out[k] = t.to(device, non_blocking=True)
         else:
-            out[k] = t.clone()
+            with span("upload.copy"):
+                out[k] = t.clone()
+    UPLOADS["uploads"] += 1
+    UPLOADS["bytes"] += nbytes
+    trace.count("upload.bytes", nbytes)
     return out
 
 
@@ -102,6 +122,10 @@ class DeviceExampleCache:
             self._bytes -= self._entry_bytes(ent)
 
     def shard_batch(self, arrays, ids):
+        with span("device_cache.shard_batch"):
+            return self._shard_batch(arrays, ids)
+
+    def _shard_batch(self, arrays, ids):
         n = len(ids)
         assert all(v.shape[0] == n for v in arrays.values()), (
             "device cache needs batch-leading fields",

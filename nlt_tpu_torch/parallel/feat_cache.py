@@ -23,12 +23,18 @@ extracts their statics fresh each time and feeds them directly.
 Several ranks: each rank has its own cache of the examples of its
 blocks, with its own cap (nlt_tpu's per-host instance; the global
 statics arrays it then assembles have no torch counterpart).
+
+Spans (``utils/trace.py``, while a profiler runs): ``feat_cache.gather``,
+``feat_cache.insert``, and inside both ``feat_cache.indices``, the
+upload of the slot indices from pageable memory, which waits for the
+card's queue to reach it.
 """
 
 import numpy as np
 import torch
 
 from ..utils import logging as logutil
+from ..utils.trace import span
 from ..utils.tree import tree_leaves, tree_map
 
 logger = logutil.Logger(loggee="parallel/feat_cache")
@@ -51,8 +57,9 @@ class GTFeatureCache:
                    for t in tree_leaves(self.taps))
 
     def _indices(self, ids, device):
-        return torch.as_tensor(np.array([self.slot[i] for i in ids],
-                                        np.int64), device=device)
+        with span("feat_cache.indices"):
+            return torch.as_tensor(np.array([self.slot[i] for i in ids],
+                                            np.int64), device=device)
 
     def has_all(self, ids):
         return (self.taps is not None
@@ -86,6 +93,10 @@ class GTFeatureCache:
         (take_compact_frac) with more live queries than its capacity
         was truncated when it was made: refused here, the one host-side
         point every extracted plan passes through."""
+        with span("feat_cache.insert"):
+            return self._insert(ids, feats)
+
+    def _insert(self, ids, feats):
         plan = (feats.get("products", {}).get("pred_plan", {})
                 if isinstance(feats, dict) else {})
         if "clive" in plan:
@@ -118,6 +129,7 @@ class GTFeatureCache:
         return len(rows) == len(ids)
 
     def gather(self, ids):
-        device = tree_leaves(self.taps)[0].device
-        idx = self._indices(ids, device)
-        return tree_map(lambda t: t.index_select(0, idx), self.taps)
+        with span("feat_cache.gather"):
+            device = tree_leaves(self.taps)[0].device
+            idx = self._indices(ids, device)
+            return tree_map(lambda t: t.index_select(0, idx), self.taps)

@@ -46,6 +46,12 @@ gives the port the same shape: one CUDA graph per key, replayed.
   (``launch_counter``), and a replay makes none. A capture records each
   counter's change, takes it back (nothing launched), and every replay
   adds it again, so counts read the same eager or replayed.
+- Spans (``utils/trace.py``, while a profiler runs): each call on the
+  graph path is ``graph.call``, holding ``graph.key`` (the arguments
+  flattened, their metadata and the lookup), then ``graph.warm_up`` or
+  ``graph.capture`` on a key's first two calls, else ``graph.copy_in``,
+  ``graph.replay`` and ``graph.clone_out``. ``CAPTURES`` counts warm-ups
+  and captures by program name: a window of replays adds none.
 
 What runs eagerly on the card is decided once, before the first step,
 by ``eager_reason`` (the rule), and logged; never by catching a capture
@@ -58,12 +64,15 @@ import threading
 import torch
 
 from ..utils import logging as logutil
+from ..utils.trace import span
 
 logger = logutil.Logger(loggee="graph")
 
 _STATE = threading.local()
 # Replays by program name, over every runner of the process.
 REPLAYS = {}
+# Warm-ups plus captures by program name, over every runner.
+CAPTURES = {}
 # The kernels' launch counters ({name: count} dicts), registered by the
 # wrappers' modules at import.
 COUNTERS = []
@@ -193,6 +202,10 @@ def _graphs_on(device):
     return _CudaGraphs if device.type == "cuda" else None
 
 
+# A key not seen before (a warm-up's key maps to None until its capture).
+_NEW = object()
+
+
 class _Graph:
     """One key's graph: its static input buffers, its outputs' layout and
     the launch counts one replay makes."""
@@ -226,43 +239,62 @@ class Captured:
     def __call__(self, *args, **kwargs):
         if getattr(_STATE, "disabled", False):
             return self.fn(*args, **kwargs)
-        addressed, copied = [], []
-        spec = (tuple(_flatten(a, addressed if i in self.by_address
-                               else copied)
-                      for i, a in enumerate(args)),
-                _flatten(kwargs, copied))
-        devices = {t.device for t in addressed + copied}
-        if len(devices) > 1:
-            raise ValueError("%s: tensors on several devices: %s"
-                             % (self.name, sorted(map(str, devices))))
-        device = devices.pop() if devices else None
-        backend = _graphs_on(device) if device is not None else None
-        if backend is None:
-            return self.fn(*args, **kwargs)
-        key = (spec, tuple(map(_meta, copied)),
-               tuple(_meta(t) + (t.data_ptr(),) for t in addressed))
-        if self._backend is None:
-            self._backend = backend(device)
-        if key not in self._graphs:
+        with span("graph.call"):
+            with span("graph.key"):
+                addressed, copied = [], []
+                spec = (tuple(_flatten(a, addressed if i in self.by_address
+                                       else copied)
+                              for i, a in enumerate(args)),
+                        _flatten(kwargs, copied))
+                devices = {t.device for t in addressed + copied}
+                if len(devices) > 1:
+                    raise ValueError("%s: tensors on several devices: %s"
+                                     % (self.name,
+                                        sorted(map(str, devices))))
+                device = devices.pop() if devices else None
+                backend = (_graphs_on(device) if device is not None
+                           else None)
+                if backend is not None:
+                    key = (spec, tuple(map(_meta, copied)),
+                           tuple(_meta(t) + (t.data_ptr(),)
+                                 for t in addressed))
+                    entry = self._graphs.get(key, _NEW)
+            if backend is not None:
+                if self._backend is None:
+                    self._backend = backend(device)
+                return self._run(key, entry, spec, addressed, copied)
+        # No graphs on this device: the body runs eagerly, outside the
+        # runner's spans.
+        return self.fn(*args, **kwargs)
+
+    def _run(self, key, entry, spec, addressed, copied):
+        """The call on the graph path: warm-up, capture or replay."""
+        if entry is _NEW:
             # The warm-up is the call itself: its results are the call's.
             self._graphs[key] = None
-            return self._backend.warm_up(
-                lambda: self._call_on(spec, addressed, copied), copied)
-        entry = self._graphs[key]
+            CAPTURES[self.name] = CAPTURES.get(self.name, 0) + 1
+            with span("graph.warm_up"):
+                return self._backend.warm_up(
+                    lambda: self._call_on(spec, addressed, copied), copied)
         if entry is None:
-            entry = self._graphs[key] = self._capture(spec, addressed,
-                                                      copied)
-        if copied:
-            torch._foreach_copy_(entry.inputs, copied)
-        for counter, delta in entry.counts:
-            for k, v in delta.items():
-                counter[k] += v
-        self._backend.replay(entry.graph)
+            CAPTURES[self.name] = CAPTURES.get(self.name, 0) + 1
+            with span("graph.capture"):
+                entry = self._graphs[key] = self._capture(spec, addressed,
+                                                          copied)
+        with span("graph.copy_in"):
+            if copied:
+                torch._foreach_copy_(entry.inputs, copied)
+        with span("graph.replay"):
+            for counter, delta in entry.counts:
+                for k, v in delta.items():
+                    counter[k] += v
+            self._backend.replay(entry.graph)
         self.replays += 1
         REPLAYS[self.name] = REPLAYS.get(self.name, 0) + 1
-        return _unflatten(entry.out_spec, iter(
-            addressed[v] if how == "addr" else v.clone()
-            for how, v in entry.outs))
+        with span("graph.clone_out"):
+            return _unflatten(entry.out_spec, iter(
+                addressed[v] if how == "addr" else v.clone()
+                for how, v in entry.outs))
 
     def _call_on(self, spec, addressed, copied):
         """fn on the given leaves, in the call's structure."""

@@ -21,7 +21,9 @@ stochastic loss). Outputs follow the runner's contract: the loss and
 
 The loss network's weights (LPIPS) are detached inside the loss, so they
 get no gradient; the optimizer walks them with zero gradients, as optax
-does. The optimizer's work is marked for the profiler (``nlt::optimizer``).
+does. The optimizer's work is a span for the profiler (``nlt::optimizer``,
+``utils/trace.py``); like the losses' spans it exists only in eager
+steps, since a CUDA graph's replay runs no host code.
 
 BatchNorm (norm = batch): the forward runs inside
 ``elements.collect_bn_stats()``; after the optimizer update (which walks
@@ -58,6 +60,7 @@ import numpy as np
 import torch
 
 from ..networks import elements
+from ..utils.trace import span
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from . import graph, halo
 
@@ -296,7 +299,7 @@ def make_train_step(model, tx, with_vis=True, cached_statics=False,
                 whole += grads
             mesh.all_reduce_mean_(whole, split=split)
         grads = tree_unflatten(params, grads)
-        with torch.profiler.record_function("nlt::optimizer"):
+        with span("optimizer"):
             updates, opt_state = tx.update(grads, state["opt_state"])
             new_params = apply_updates(params, updates)
         # BN moving statistics; before nan_guard, so a guarded step keeps

@@ -33,6 +33,10 @@ nlt_tpu/serve.py).
   arrays are copied into the graph's buffers, the params and the baked
   pyramid are read where they lie, and every call returns fresh output
   tensors; a sharded server stays eager (``graph.eager_reason``);
+- spans (``utils/trace.py``, while a profiler runs): a request is
+  ``serve.predict``, holding ``serve.place`` (the input cache or the
+  upload), the forward's ``graph.call`` and ``serve.fetch`` (the one
+  device-to-host copy);
 - ``export`` writes the serving program, weights and pyramid included,
   as a bundle of ``torch.export`` programs, one per batch size, that
   ``ExportedServer`` serves without the model code, config or
@@ -77,6 +81,7 @@ from .trainvali import add_dist_args, init_dist
 from .utils import config as config_mod
 from .utils import img as imgutil
 from .utils import logging as logutil
+from .utils.trace import span
 from .utils.tree import tree_leaves, tree_unflatten
 
 logger = logutil.Logger(loggee="serve")
@@ -225,7 +230,12 @@ class Server:
         ids (one per row, e.g. batch['id']): serve repeat queries from
         the device input cache. Returns {field: numpy array} (the whole
         request's, on every rank of a sharded server)."""
-        return _fetch(self._forward(*self._place(batch, ids)))
+        with span("serve.predict"):
+            with span("serve.place"):
+                placed = self._place(batch, ids)
+            out = self._forward(*placed)
+            with span("serve.fetch"):
+                return _fetch(out)
 
     def benchmark(self, batch, n=20, ids=None):
         """latency_s: median per-request time, placement to fetched

@@ -31,11 +31,18 @@ The port's ways:
   or, from an example's second sight on, the device cache's assembly;
 - ``<outdir>/epoch_times.jsonl`` records per epoch where the host's time
   went (loader wait, placement, step dispatch, the end-of-epoch sync,
-  checkpoint, vis, validation);
+  checkpoint, vis, validation); each part is also a span
+  (``utils/trace.py``: ``nlt::trainvali.loader``, ``.place``, ``.step``,
+  ``.sync``, ``.ckpt``, ``.train_vis``, ``.vali``);
 - ``--profile`` writes a ``torch.profiler`` trace of the training steps
   of the second epoch (the first one fed from the caches; the first
   epoch when there is only one) to ``<outdir>/profile/``, with a
-  ``summary.json`` of its device and wall time.
+  ``summary.json`` of its device and wall time; the trace holds the
+  training loop's parts (``nlt::trainvali.loader``, ``.place``,
+  ``.step``) and the program's spans inside them (placement, the
+  caches, the compiled step's ``graph.*``). Placement on the prefetch
+  thread (``prefetch_batches``) is timed but not traced: the profiler
+  observes the thread that started it.
 
 Data parallel (nlt_tpu's 'data' axis; ``parallel/mesh.py``): start one
 process per rank with nlt_tpu's flags (``--coordinator_address``,
@@ -96,6 +103,7 @@ from .utils import config as config_mod
 from .utils import img as imgutil
 from .utils import io as ioutil
 from .utils import logging as logutil
+from .utils import trace
 from .utils.tree import tree_map
 
 logger = logutil.Logger(loggee="trainvali")
@@ -314,6 +322,12 @@ class VisStager:
                 self.host_cache.pop(next(iter(self.host_cache)))
         out.update(staged["meta"])
         return out
+
+
+# The parts of an epoch's host time in epoch_times.jsonl ("<part>_s"),
+# each also the span nlt::trainvali.<part>.
+EPOCH_PARTS = ("loader", "place", "step", "sync", "ckpt", "train_vis",
+               "vali")
 
 
 class _Profile:
@@ -599,18 +613,18 @@ def _main(args, device, mesh):
     place_stream = (torch.cuda.Stream(device) if prefetch_depth > 0
                     and device.type == "cuda" else None)
 
-    def place(batch):
+    def place(batch, clock):
         arrays, meta = strip_host_fields(batch)
-        t0 = time.perf_counter()
-        if device_cache is not None:
-            arrays = device_cache.shard_batch(arrays, batch["id"])
-        else:
-            arrays = device_cache_mod.upload(arrays, device)
-        return arrays, meta, batch["id"], time.perf_counter() - t0
+        with clock.part("place"):
+            if device_cache is not None:
+                arrays = device_cache.shard_batch(arrays, batch["id"])
+            else:
+                arrays = device_cache_mod.upload(arrays, device)
+        return arrays, meta, batch["id"]
 
-    def place_on_stream(batch):
+    def place_on_stream(batch, clock):
         with torch.cuda.stream(place_stream):
-            out = place(batch)
+            out = place(batch, clock)
             event = torch.cuda.Event()
             event.record(place_stream)
         return out, event
@@ -626,40 +640,38 @@ def _main(args, device, mesh):
             place_pool.shutdown(wait=False, cancel_futures=True)
 
     def placed_batches(batch_iter, clock):
-        """Yield place(batch) results; clock['loader'] accumulates the
-        time spent waiting on the loader."""
+        """Yield place(batch) results; the clock's 'loader' accumulates
+        the time spent waiting on the loader, its 'place' placement."""
         def timed(it):
             while True:
-                t0 = time.perf_counter()
                 try:
-                    b = next(it)
+                    with clock.part("loader"):
+                        b = next(it)
                 except StopIteration:
                     return
-                finally:
-                    clock["loader"] += time.perf_counter() - t0
                 yield b
 
         batch_iter = timed(iter(batch_iter))
         if place_pool is None:
             for b in batch_iter:
-                yield place(b)
+                yield place(b, clock)
             return
 
         def finish(fut):
             out = fut.result()
             if place_stream is None:
                 return out
-            (arrays, meta, ids, dt), event = out
+            (arrays, meta, ids), event = out
             cur = torch.cuda.current_stream(device)
             cur.wait_event(event)
             for t in arrays.values():
                 t.record_stream(cur)
-            return arrays, meta, ids, dt
+            return arrays, meta, ids
 
         submit = place_on_stream if place_stream is not None else place
         futs = deque()
         for b in batch_iter:
-            futs.append(place_pool.submit(submit, b))
+            futs.append(place_pool.submit(submit, b, clock))
             if len(futs) > prefetch_depth:
                 yield finish(futs.popleft())
         while futs:
@@ -682,34 +694,32 @@ def _main(args, device, mesh):
         else None
 
     for epoch_i in range(epoch_restored, epochs):
-        clock = {"loader": 0.0, "place": 0.0, "step": 0.0}
+        clock = trace.Clock("trainvali", EPOCH_PARTS)
         batch_loss, batch_vis, n_batches = [], [], 0
         epoch_t0 = time.perf_counter()
         prof = (_Profile(outdir, device) if epoch_i == profile_epoch
                 else None)
         if prof is not None:
             prof.__enter__()
-        for batch_i, (arrays, meta, batch_ids, place_s) in enumerate(
+        for batch_i, (arrays, meta, batch_ids) in enumerate(
                 placed_batches(dataset_train.iterate(
                     seed=epoch_i, no_batch=no_batch, shard_id=shard_id,
                     num_shards=num_shards), clock)):
-            clock["place"] += place_s
-            t0 = time.perf_counter()
-            if feat_cache is not None:
-                # Extract-then-step, even on first sight of an example:
-                # the cached step skips exactly the work the extractor
-                # just did.
-                if feat_cache.has_all(batch_ids):
-                    statics = feat_cache.gather(batch_ids)
-                else:
-                    statics = extract_statics(state["params"], arrays)
-                    if feat_cache.insert(batch_ids, statics):
+            with clock.part("step"):
+                if feat_cache is not None:
+                    # Extract-then-step, even on first sight of an
+                    # example: the cached step skips exactly the work the
+                    # extractor just did.
+                    if feat_cache.has_all(batch_ids):
                         statics = feat_cache.gather(batch_ids)
-                state, loss, to_vis = train_step_cached(state, arrays,
-                                                        statics)
-            else:
-                state, loss, to_vis = train_step(state, arrays)
-            clock["step"] += time.perf_counter() - t0
+                    else:
+                        statics = extract_statics(state["params"], arrays)
+                        if feat_cache.insert(batch_ids, statics):
+                            statics = feat_cache.gather(batch_ids)
+                    state, loss, to_vis = train_step_cached(state, arrays,
+                                                            statics)
+                else:
+                    state, loss, to_vis = train_step(state, arrays)
             n_batches += 1
             if prof is not None:
                 prof.steps += 1
@@ -730,9 +740,8 @@ def _main(args, device, mesh):
             prof.__exit__(None, None, None)
         assert n_batches, "Dataset is empty"
         # One copy for the epoch's losses (the sync point of the epoch).
-        t0 = time.perf_counter()
-        batch_loss = [float(x) for x in torch.stack(batch_loss).cpu()]
-        clock["sync"] = time.perf_counter() - t0
+        with clock.part("sync"):
+            batch_loss = [float(x) for x in torch.stack(batch_loss).cpu()]
         train_s = time.perf_counter() - epoch_t0
         n_bad = sum(1 for x in batch_loss if not np.isfinite(x))
         if n_bad:
@@ -745,116 +754,116 @@ def _main(args, device, mesh):
         step = epoch_i + 1
 
         # ---- checkpoint + train summaries/vis ----
-        t0 = time.perf_counter()
-        if is_main and step % ckpt_period == 0:
-            saved = manager.save(step, state, force=True)
-            logger.info("Checkpointed epoch %d:\n\t%s", step, saved)
-        clock["ckpt"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        if is_main and step % ckpt_period == 0:
-            writer_train.scalar("loss_train", float(np.mean(batch_loss)),
-                                step)
-            writer_train.scalar("batch_time_train", batch_time, step)
-            texels = (config.get_int("bs") * config.get_int("uvh")
-                      * config.get_int("uvw"))
-            writer_train.scalar("texels_per_sec", texels / batch_time, step)
-            vis_dirs = []
-            for batch_i, staged in enumerate(batch_vis):
-                to_vis = stager.materialize(staged)
-                vis_dir = join(train_vis_epoch_dir.format(e=step),
-                               "batch%09d" % batch_i)
-                raw_f = (join(train_vis_epoch_dir.format(e=step),
-                              "batch%09d_raw.pickle" % batch_i)
-                         if dump_raw else None)
-                model.vis_batch(to_vis, vis_dir, mode="train",
-                                dump_raw_to=raw_f)
-                vis_dirs.append(vis_dir)
-            if vis_dirs:
-                comp_f = join(train_vis_epoch_dir.format(e=step), "all")
-                view_at = model.compile_batch_vis(vis_dirs, comp_f,
-                                                  mode="train")
-                if view_at is not None:
-                    writer_train.text("vis_train", view_at, step)
-                maintain_epoch_queue(train_deque,
-                                     train_vis_epoch_dir.format(e=step))
-        clock["train_vis"] = time.perf_counter() - t0
+        with clock.part("ckpt"):
+            if is_main and step % ckpt_period == 0:
+                saved = manager.save(step, state, force=True)
+                logger.info("Checkpointed epoch %d:\n\t%s", step, saved)
+        with clock.part("train_vis"):
+            if is_main and step % ckpt_period == 0:
+                writer_train.scalar("loss_train", float(np.mean(batch_loss)),
+                                    step)
+                writer_train.scalar("batch_time_train", batch_time, step)
+                texels = (config.get_int("bs") * config.get_int("uvh")
+                          * config.get_int("uvw"))
+                writer_train.scalar("texels_per_sec", texels / batch_time,
+                                    step)
+                vis_dirs = []
+                for batch_i, staged in enumerate(batch_vis):
+                    to_vis = stager.materialize(staged)
+                    vis_dir = join(train_vis_epoch_dir.format(e=step),
+                                   "batch%09d" % batch_i)
+                    raw_f = (join(train_vis_epoch_dir.format(e=step),
+                                  "batch%09d_raw.pickle" % batch_i)
+                             if dump_raw else None)
+                    model.vis_batch(to_vis, vis_dir, mode="train",
+                                    dump_raw_to=raw_f)
+                    vis_dirs.append(vis_dir)
+                if vis_dirs:
+                    comp_f = join(train_vis_epoch_dir.format(e=step), "all")
+                    view_at = model.compile_batch_vis(vis_dirs, comp_f,
+                                                      mode="train")
+                    if view_at is not None:
+                        writer_train.text("vis_train", view_at, step)
+                    maintain_epoch_queue(train_deque,
+                                         train_vis_epoch_dir.format(e=step))
 
         # ---- validation ----
-        t0 = time.perf_counter()
-        if vali_batches and vali_period > 0 and step % vali_period == 0:
-            v_loss, v_vis, v_psnr = [], [], []
-            for batch in vali_batches:
-                if preempt_agreed():
-                    return preempt_exit(
-                        step, "during validation at epoch %d" % step,
-                        already=manager.latest_step() == step)
-                # Every rank holds the full set; a batch that divides the
-                # world is split over the ranks, the rest replicated.
-                arrays, meta = strip_host_fields(batch)
-                arrays, sharded = mesh.shard_rows(
-                    dict(arrays, id=batch["id"]))
-                ids = arrays.pop("id")
-                if device_cache is not None:
-                    arrays = device_cache.shard_batch(arrays, ids)
-                else:
-                    arrays = device_cache_mod.upload(arrays, device)
-                loss, to_vis = eval_step(state, arrays, sharded=sharded)
-                packed = stager.pack(to_vis)
-                if sharded:  # the whole batch's vis, for rank 0
-                    packed = mesh.gather_rows(packed)
-                if is_main:
-                    v_loss.append(loss)
-                    v_vis.append(stager.stage(None, meta, packed=packed))
-        clock["vali"] = time.perf_counter() - t0
+        with clock.part("vali"):
+            if vali_batches and vali_period > 0 and step % vali_period == 0:
+                v_loss, v_vis, v_psnr = [], [], []
+                for batch in vali_batches:
+                    if preempt_agreed():
+                        return preempt_exit(
+                            step, "during validation at epoch %d" % step,
+                            already=manager.latest_step() == step)
+                    # Every rank holds the full set; a batch that divides
+                    # the world is split over the ranks, the rest
+                    # replicated.
+                    arrays, meta = strip_host_fields(batch)
+                    arrays, sharded = mesh.shard_rows(
+                        dict(arrays, id=batch["id"]))
+                    ids = arrays.pop("id")
+                    if device_cache is not None:
+                        arrays = device_cache.shard_batch(arrays, ids)
+                    else:
+                        arrays = device_cache_mod.upload(arrays, device)
+                    loss, to_vis = eval_step(state, arrays, sharded=sharded)
+                    packed = stager.pack(to_vis)
+                    if sharded:  # the whole batch's vis, for rank 0
+                        packed = mesh.gather_rows(packed)
+                    if is_main:
+                        v_loss.append(loss)
+                        v_vis.append(stager.stage(None, meta, packed=packed))
         if is_main and vali_batches and vali_period > 0 \
                 and step % vali_period == 0:
-            t0 = time.perf_counter()
-            v_loss = [float(x) for x in torch.stack(v_loss).cpu()]
-            v_vis = [stager.materialize(s) for s in v_vis]
-            for to_vis in v_vis:
-                if "gt_camspc" in to_vis:
-                    gt01 = imgutil.vis_to_float01(to_vis["gt_camspc"])
-                    pd01 = imgutil.vis_to_float01(to_vis["pred_camspc"])
-                    ids = to_vis.get("id") or [None] * pd01.shape[0]
-                    for i in range(pd01.shape[0]):
-                        v_psnr.append((ids[i], model.psnr(gt01[i], pd01[i])))
-            writer_vali.scalar("loss_vali", float(np.mean(v_loss)), step)
-            finite = [(i, p) for i, p in v_psnr if np.isfinite(p)]
-            if finite:
-                vals = [p for _, p in finite]
-                writer_vali.scalar("psnr_vali", float(np.mean(vals)), step)
-                if len(vals) > 1:
-                    writer_vali.scalar("psnr_vali_std",
-                                       float(np.std(vals, ddof=1)), step)
-                    writer_vali.scalar("psnr_vali_n", len(vals), step)
-                if any(i for i, _ in finite):
-                    writer_vali.text("psnr_vali_by_id", json.dumps(
-                        {str(i): round(float(p), 4) for i, p in finite}),
-                        step)
-                    # Multi-scene runs: per-scene means (ids are
-                    # namespaced '<scene>/<id>').
-                    by_scene = {}
-                    for i, p in finite:
-                        if i and "/" in str(i):
-                            by_scene.setdefault(
-                                str(i).rsplit("/", 1)[0], []).append(p)
-                    if len(by_scene) > 1:
-                        for scene, ps in sorted(by_scene.items()):
-                            writer_vali.scalar("psnr_vali/%s" % scene,
-                                               float(np.mean(ps)), step)
-            vis_dirs = []
-            for batch_i, to_vis in enumerate(v_vis):
-                vis_dir = join(vali_vis_epoch_dir.format(e=step),
-                               "batch%09d" % batch_i)
-                model.vis_batch(to_vis, vis_dir, mode="vali")
-                vis_dirs.append(vis_dir)
-            comp_f = join(vali_vis_epoch_dir.format(e=step), "all")
-            view_at = model.compile_batch_vis(vis_dirs, comp_f, mode="vali")
-            if view_at is not None:
-                writer_vali.text("vis_vali", view_at, step)
-            maintain_epoch_queue(vali_deque,
-                                 vali_vis_epoch_dir.format(e=step))
-            clock["vali"] += time.perf_counter() - t0
+            with clock.part("vali"):
+                v_loss = [float(x) for x in torch.stack(v_loss).cpu()]
+                v_vis = [stager.materialize(s) for s in v_vis]
+                for to_vis in v_vis:
+                    if "gt_camspc" in to_vis:
+                        gt01 = imgutil.vis_to_float01(to_vis["gt_camspc"])
+                        pd01 = imgutil.vis_to_float01(to_vis["pred_camspc"])
+                        ids = to_vis.get("id") or [None] * pd01.shape[0]
+                        for i in range(pd01.shape[0]):
+                            v_psnr.append((ids[i],
+                                           model.psnr(gt01[i], pd01[i])))
+                writer_vali.scalar("loss_vali", float(np.mean(v_loss)), step)
+                finite = [(i, p) for i, p in v_psnr if np.isfinite(p)]
+                if finite:
+                    vals = [p for _, p in finite]
+                    writer_vali.scalar("psnr_vali", float(np.mean(vals)), step)
+                    if len(vals) > 1:
+                        writer_vali.scalar("psnr_vali_std",
+                                           float(np.std(vals, ddof=1)), step)
+                        writer_vali.scalar("psnr_vali_n", len(vals), step)
+                    if any(i for i, _ in finite):
+                        writer_vali.text("psnr_vali_by_id", json.dumps(
+                            {str(i): round(float(p), 4) for i, p in finite}),
+                            step)
+                        # Multi-scene runs: per-scene means (ids are
+                        # namespaced '<scene>/<id>').
+                        by_scene = {}
+                        for i, p in finite:
+                            if i and "/" in str(i):
+                                by_scene.setdefault(
+                                    str(i).rsplit("/", 1)[0], []).append(p)
+                        if len(by_scene) > 1:
+                            for scene, ps in sorted(by_scene.items()):
+                                writer_vali.scalar("psnr_vali/%s" % scene,
+                                                   float(np.mean(ps)), step)
+                vis_dirs = []
+                for batch_i, to_vis in enumerate(v_vis):
+                    vis_dir = join(vali_vis_epoch_dir.format(e=step),
+                                   "batch%09d" % batch_i)
+                    model.vis_batch(to_vis, vis_dir, mode="vali")
+                    vis_dirs.append(vis_dir)
+                comp_f = join(vali_vis_epoch_dir.format(e=step), "all")
+                view_at = model.compile_batch_vis(vis_dirs, comp_f,
+                                                  mode="vali")
+                if view_at is not None:
+                    writer_vali.text("vis_vali", view_at, step)
+                maintain_epoch_queue(vali_deque,
+                                     vali_vis_epoch_dir.format(e=step))
 
         # Keep-best retention, once this epoch's vali scalars are on disk.
         if is_main and step % ckpt_period == 0:
@@ -876,7 +885,8 @@ def _main(args, device, mesh):
                      "device_cache_mb": (
                          device_cache.stats()["mb"]
                          if device_cache is not None else 0.0)},
-                    **{k + "_s": v for k, v in clock.items()})) + "\n")
+                    **{k + "_s": v for k, v in clock.seconds.items()}))
+                    + "\n")
         logger.info("Epoch %d/%d  loss %.6f  (%.3f s/batch)%s", step, epochs,
                     float(np.mean(batch_loss)), batch_time,
                     "  rank %d" % mesh.rank if world > 1 else "")
