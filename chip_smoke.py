@@ -140,8 +140,12 @@ Phases, each of which must pass for the run to exit 0:
    steps (relative L2), 12 + 6 + 1 launches a compact step; the compact
    and full steps timed in turns, and the device ms of the take, the
    combine and the reconstruction; take_compact_frac 0.3 refused at
-   feat_cache.insert. (b) Phase 3's serving config with kernel 3 /
-   stride 2, kernel 4 / stride 2, and kernel 5 / stride 1 / max pooling
+   feat_cache.insert; then five steady-state steps of feat_cache.gather
+   and the captured donated cached step under
+   torch.cuda.set_sync_debug_mode("error"), which must raise nothing
+   (the slot indices go up through pinned memory). (b) Phase 3's
+   serving config with kernel 3 / stride 2, kernel 4 / stride 2, and
+   kernel 5 / stride 1 / max pooling
    (the general conv path, no stage kernel): predict in bf16 and float32
    against the CPU port on one request (float32 1e-4, bf16 2e-2, uint8
    within 1 LSB) and with torch's default TF32 switches against the
@@ -3637,6 +3641,63 @@ def compact_phase(card):
     return bool(ok), launches
 
 
+# Steady-state cached steps enqueue without waiting for the card: under
+# torch.cuda.set_sync_debug_mode("error") any call that synchronises
+# raises, as a pageable upload of the slot indices in feat_cache.gather
+# does. Between epoch ends a trainer makes no such call.
+SYNC_FREE_STEPS = 5
+
+
+def sync_free_phase(card):
+    """11(a'): SYNC_FREE_STEPS steady-state steps of feat_cache.gather and
+    the captured donated cached step (the flagship recipe at bs 4, two
+    batches in turns) under set_sync_debug_mode("error"). Returns ok."""
+    from nlt_tpu_torch.parallel import feat_cache as feat_cache_mod
+
+    t0 = time.perf_counter()
+    model = Model(options_cfg("bfloat16"), device="cuda")
+    tx = train_mod.make_optimizer(1e-3, -1)
+    state = train_mod.init_state(model, tx, torch.Generator().manual_seed(0))
+    extract = train_mod.make_static_extractor(model)
+    step = train_mod.make_train_step(model, tx, cached_statics=True,
+                                     donate=True)
+    ids = [list(range(i * TRAIN_BS, (i + 1) * TRAIN_BS)) for i in range(2)]
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in make_batch(
+        TRAIN_BS, RES, 90 + i).items()} for i in range(2)]
+    cache = feat_cache_mod.GTFeatureCache(ids[0] + ids[1])
+    for b_ids, b in zip(ids, batches):
+        cache.insert(b_ids, extract(state["params"], b))
+    for i in range(2):    # the key's warm-up, then its capture
+        state, _, _ = step(state, batches[i], cache.gather(ids[i]))
+    torch.cuda.synchronize()
+    pinned, replays = feat_cache_mod.INDEX_UPLOADS["pinned"], step.replays
+    losses, error = [], ""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(SYNC_FREE_STEPS):
+            statics = cache.gather(ids[i % 2])
+            state, loss, _ = step(state, batches[i % 2], statics)
+            losses.append(loss)
+    except RuntimeError as e:
+        error = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    pinned = feat_cache_mod.INDEX_UPLOADS["pinned"] - pinned
+    replays = step.replays - replays
+    ok = (not error and len(losses) == SYNC_FREE_STEPS
+          and bool(np.isfinite(losses).all())
+          and pinned == replays == SYNC_FREE_STEPS)
+    emit(check="cached_steps_sync_free", card=card, steps=SYNC_FREE_STEPS,
+         steps_done=len(losses), error=error[:300], losses=losses,
+         pinned_uploads=pinned, replays=replays,
+         seconds=time.perf_counter() - t0, ok=bool(ok))
+    del model, state, step, extract, cache, batches
+    torch.cuda.empty_cache()
+    return bool(ok)
+
+
 def _rel_max(got, want):
     return float(np.abs(got.astype(np.float64) - want).max()
                  / max(float(np.abs(want).max()), 1.0))
@@ -3859,6 +3920,7 @@ def phase11(work, main_out, card):
     Returns (ok, launches by path)."""
     t0 = time.perf_counter()
     c_ok, c_l = compact_phase(card)
+    c_ok &= sync_free_phase(card)
     g_ok, g_l = general_phase(card)
     v_ok, v_l = (converted_phase(work, main_out, card) if main_out
                  else (False, {}))

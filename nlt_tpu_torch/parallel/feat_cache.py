@@ -24,20 +24,44 @@ Several ranks: each rank has its own cache of the examples of its
 blocks, with its own cap (nlt_tpu's per-host instance; the global
 statics arrays it then assembles have no torch counterpart).
 
+Index uploads: on a CUDA device the slot indices (and insert's batch
+rows) are staged through pinned memory and copied with
+``non_blocking=True``, so the host never waits for the card's queue
+here and enqueues the next step while the current one runs; the caching
+host allocator keeps each pinned block until its copy is done. On the
+CPU the indices are built in place. ``INDEX_UPLOADS`` counts the
+uploads and those that went through pinned memory; each pinned one is
+also the count ``feat_cache.indices.pinned`` in the trace's log.
+
 Spans (``utils/trace.py``, while a profiler runs): ``feat_cache.gather``,
 ``feat_cache.insert``, and inside both ``feat_cache.indices``, the
-upload of the slot indices from pageable memory, which waits for the
-card's queue to reach it.
+slot indices' upload (on CUDA the pin and the enqueued copy).
 """
 
 import numpy as np
 import torch
 
 from ..utils import logging as logutil
+from ..utils import trace
 from ..utils.trace import span
 from ..utils.tree import tree_leaves, tree_map
 
 logger = logutil.Logger(loggee="parallel/feat_cache")
+
+# Index uploads and those staged through pinned memory, over the process.
+INDEX_UPLOADS = {"uploads": 0, "pinned": 0}
+
+
+def _upload_indices(values, device):
+    """int64 tensor of `values` on `device`. CUDA: staged through pinned
+    memory and copied without blocking the host. Elsewhere: built there."""
+    t = torch.tensor(values, dtype=torch.int64, device="cpu")
+    INDEX_UPLOADS["uploads"] += 1
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    INDEX_UPLOADS["pinned"] += 1
+    trace.count("feat_cache.indices.pinned", 1)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 class GTFeatureCache:
@@ -58,8 +82,7 @@ class GTFeatureCache:
 
     def _indices(self, ids, device):
         with span("feat_cache.indices"):
-            return torch.as_tensor(np.array([self.slot[i] for i in ids],
-                                            np.int64), device=device)
+            return _upload_indices([self.slot[i] for i in ids], device)
 
     def has_all(self, ids):
         return (self.taps is not None
@@ -120,7 +143,7 @@ class GTFeatureCache:
             return False
         slotted = [ids[r] for r in rows]
         device = tree_leaves(feats)[0].device
-        src = torch.as_tensor(np.array(rows, np.int64), device=device)
+        src = _upload_indices(rows, device)
         dst = self._indices(slotted, device)
         for table, f in zip(tree_leaves(self.taps), tree_leaves(feats)):
             table.index_copy_(0, dst, f.index_select(0, src))

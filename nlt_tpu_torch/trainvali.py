@@ -21,8 +21,12 @@ cached (cache_static keeps its warp products only).
 The port's ways:
 - the device's work is queued without waiting: each batch's loss stays a
   0-d device tensor, and the epoch's losses are fetched in one copy at
-  its end; vis is packed on the device and copied into pinned host
-  buffers without blocking, then read after its CUDA event;
+  its end, the epoch's one wait for the card; the feature cache's slot
+  indices go up through pinned memory without blocking
+  (``parallel/feat_cache.py``), so the host enqueues the next cached
+  step while the current one runs; vis is packed on the device and
+  copied into pinned host buffers without blocking, then read after its
+  CUDA event;
 - on the card the training and eval steps are CUDA graphs, one per
   batch shape, over the state's own tensors (the steps donate; see
   ``parallel/graph.py`` for the rule that keeps a run eager: a mesh over
@@ -33,7 +37,10 @@ The port's ways:
   went (loader wait, placement, step dispatch, the end-of-epoch sync,
   checkpoint, vis, validation); each part is also a span
   (``utils/trace.py``: ``nlt::trainvali.loader``, ``.place``, ``.step``,
-  ``.sync``, ``.ckpt``, ``.train_vis``, ``.vali``);
+  ``.sync``, ``.ckpt``, ``.train_vis``, ``.vali``). With cached statics
+  on the card, ``step`` is the host's enqueueing (the cache's gather,
+  the graph call) and ``sync`` the wait for the device work still queued
+  at the epoch's end, which the host ran ahead of;
 - ``--profile`` writes a ``torch.profiler`` trace of the training steps
   of the second epoch (the first one fed from the caches; the first
   epoch when there is only one) to ``<outdir>/profile/``, with a
@@ -724,7 +731,8 @@ def _main(args, device, mesh):
             if prof is not None:
                 prof.steps += 1
             # No sync here: the loss stays on the device until the
-            # epoch's end.
+            # epoch's end, and the cached step's gather uploads its
+            # indices without blocking (the queue drains in "sync").
             batch_loss.append(loss)
             if (is_main and batch_i < vis_train_batches
                     and (epoch_i + 1) % ckpt_period == 0):
