@@ -248,11 +248,12 @@ sends every expand (contract) call of the run to the tiled kernel
 (tiled), or leaves it to the planner (auto, the default: the split
 kernel at the plans measured on the card, the tiled kernel elsewhere).
 
-    python3 chip_smoke.py --sweep [--out DIR]
+    python3 chip_smoke.py --sweep [--sweep-recipe NAME ...] [--out DIR]
 
 builds the kernels, then checks and times every split launch plan of
 both ops at every flagship stage shape (bs 1 and 4) and every
-RECIPE_STAGES shape, float32 and bfloat16, beside the tiled route,
+RECIPE_STAGES shape (or at the named recipes' shapes alone), float32
+and bfloat16, beside the tiled route,
 writes one JSON line per plan to DIR/split_sweep.jsonl (default
 chiprun_out) and a summary per stage to stdout, and exits; it prints no
 result line.
@@ -605,7 +606,9 @@ FLAGSHIP_STAGES = (
 # their forward calls them (obs, then query, per contracting level):
 # recipe -> (batch size, compute dtype, [(kind, C, O, input H = W)]).
 # dragon_sss.ini (like the other *_sss.ini): 512^2, depth0 16 / depth
-# 1024, bs 4, bf16; sphere_synthetic.ini (like sphere_viewsyn.ini and
+# 1024, bs 4, bf16; the same recipe at uvh = uvw = 1024, the UV size its
+# SSS scenes are rendered at ("@uv1024": every stage at twice the side);
+# sphere_synthetic.ini (like sphere_viewsyn.ini and
 # sphere_relight_identity.ini): 128^2, depth 32, bs 2, float32.
 # tests/test_torch_fused_stage.py holds this list against the calls the
 # port's model makes under each recipe's keys.
@@ -620,6 +623,16 @@ RECIPE_STAGES = {
         ("expand_stage", c, o, h) for c, o, h in [
             (4096, 512, 2), (2560, 256, 4), (1280, 128, 8), (640, 64, 16),
             (320, 32, 32), (160, 16, 64), (80, 8, 128), (40, 4, 256)]]),
+    "dragon_sss.ini@uv1024": (4, "bfloat16", [
+        ("contract_stage", c, o, h) for c, o, h in [
+            (16, 16, 1024), (32, 16, 1024), (16, 32, 512), (32, 32, 512),
+            (32, 64, 256), (64, 64, 256), (64, 128, 128), (128, 128, 128),
+            (128, 256, 64), (256, 256, 64), (256, 512, 32), (512, 512, 32),
+            (512, 1024, 16), (1024, 1024, 16), (1024, 1024, 8),
+            (2048, 1024, 8)]] + [
+        ("expand_stage", c, o, h) for c, o, h in [
+            (4096, 512, 4), (2560, 256, 8), (1280, 128, 16), (640, 64, 32),
+            (320, 32, 64), (160, 16, 128), (80, 8, 256), (40, 4, 512)]]),
     "sphere_synthetic.ini": (2, "float32", [
         ("contract_stage", c, o, h) for c, o, h in [
             (16, 16, 128), (32, 16, 128), (16, 32, 64), (32, 32, 64),
@@ -878,25 +891,29 @@ def split_clocks(kind, args, split, slope=0.3):
             "kernel_span_ns": float(k[:, 9].max() - k[:, 0].min())}
 
 
-def sweep_shapes():
+def sweep_shapes(recipes=None):
     """(kind, n, C, O, input H = W) of every flagship stage at bs 1 and 4
-    and every recipe stage at its recipe's batch size, each once."""
-    out = [(kind, n, c, o, h) for kind, c, o, h in FLAGSHIP_STAGES
-           for n in (1, 4)]
-    out += [(kind, n, c, o, h) for n, _, stages in RECIPE_STAGES.values()
+    and every recipe stage at its recipe's batch size, each once; with
+    `recipes`, the stages of those RECIPE_STAGES entries alone."""
+    out = [] if recipes else [(kind, n, c, o, h)
+                              for kind, c, o, h in FLAGSHIP_STAGES
+                              for n in (1, 4)]
+    out += [(kind, n, c, o, h) for name, (n, _, stages)
+            in RECIPE_STAGES.items() if not recipes or name in recipes
             for kind, c, o, h in stages]
     return list(dict.fromkeys(out))
 
 
-def split_sweep(out_dir):
+def split_sweep(out_dir, shapes=None):
     """Every split plan of both ops at every flagship shape (bs 1 and 4)
-    and every recipe shape, float32 and bfloat16: checked against the
-    plain version and the tiled kernel, and timed; the tiled route timed
-    beside it. A launch the card refuses is recorded as such."""
+    and every recipe shape (or at `shapes`, sweep_shapes' tuples),
+    float32 and bfloat16: checked against the plain version and the
+    tiled kernel, and timed; the tiled route timed beside it. A launch
+    the card refuses is recorded as such."""
     os.makedirs(out_dir, exist_ok=True)
     ok = True
     with open(os.path.join(out_dir, "split_sweep.jsonl"), "w") as fh:
-        for i, (kind, n, c, o, h) in enumerate(sweep_shapes()):
+        for i, (kind, n, c, o, h) in enumerate(shapes or sweep_shapes()):
             ref = fs.contract_stage_ref if kind == "contract_stage" \
                 else fs.expand_stage_ref
             for dtype in (torch.float32, torch.bfloat16):
@@ -5095,6 +5112,8 @@ def main(argv=None):
         ap.add_argument("--%s-route" % kind, choices=("auto", "tiled"),
                         default="auto")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--sweep-recipe", action="append", default=None,
+                    choices=sorted(RECIPE_STAGES))
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "chiprun_out"))
     # One rank of phase 10 (started by the script itself).
@@ -5145,7 +5164,7 @@ def main(argv=None):
     emit(phase="build", sources=sources,
          seconds=time.perf_counter() - t0, ptxas=ptxas)
     if args.sweep:
-        ok = split_sweep(args.out)
+        ok = split_sweep(args.out, sweep_shapes(args.sweep_recipe))
         emit(phase="split_sweep_all", ok=bool(ok))
         return 0 if ok else 1
 

@@ -53,7 +53,10 @@ On a CPU tensor each op runs its plain PyTorch version
 (``contract_stage_ref`` / ``expand_stage_ref``, straight ports of the
 JAX references); on a CUDA tensor it launches its kernel or raises.
 ``LAUNCHES`` counts kernel launches per op (one per call, either route;
-a CUDA graph replay adds what its capture counted).
+a CUDA graph replay adds what its capture counted), ``ROUTES`` the same
+launches by route (``ROUTES[op]["split"]`` / ``["tiled"]``). A shape
+the split kernel could take but no sweep measured runs tiled, and says
+so once (a warning naming the shape).
 An inference call (no gradient, y2 alone) goes through the op
 registered with ``torch.library`` (``OPS``:
 ``nlt_tpu_torch::contract_stage`` / ``::expand_stage``): its CUDA
@@ -86,10 +89,16 @@ import torch
 
 from ..networks.elements import _matmul_f32, lrelu
 from ..parallel import graph
+from ..utils import logging as logutil
+
+logger = logutil.Logger(loggee="fused_stage")
 
 # Kernel launches per op; a CUDA graph replay adds what its capture
 # counted (parallel/graph.py).
 LAUNCHES = graph.launch_counter({"contract_stage": 0, "expand_stage": 0})
+# The same launches by route, one counter per op.
+ROUTES = {kind: graph.launch_counter({"split": 0, "tiled": 0})
+          for kind in LAUNCHES}
 
 _SMS = 132                # streaming multiprocessors of an H100 SXM
 _SMEM_MAX = 232448        # dynamic shared memory a block may use
@@ -116,6 +125,7 @@ _CONTRACT_SPLIT_S = (1, 2, 4, 8, 16)
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        ROUTES[k].update(split=0, tiled=0)
 
 
 # ---------------------------------------------------------------------------
@@ -276,11 +286,12 @@ def _split_candidates(n, h, w, c, o, itemsize):
 
 # The split route's plans, keyed (n, h, w, c, o, itemsize): every
 # expand stage `python3 chip_smoke.py --sweep` times (the flagship
-# stages at bs 1 and 4, dragon_sss.ini's at bs 4, sphere_synthetic.ini's
-# at bs 2), where on an H100 SXM (700 W) it timed every candidate beside
-# the tiled kernel and the split kernel won at every stage it can take
-# (2.3-18x at the flagship 8^2 to 32^2, 2.2-2.7x at 64^2 to 256^2;
-# 14-70x at dragon_sss.ini's 2^2 to 8^2; 2.9-3.5x at the bs-2 recipe's).
+# stages at bs 1 and 4, dragon_sss.ini's at bs 4 at 512^2 and 1024^2,
+# sphere_synthetic.ini's at bs 2), where on an H100 SXM (700 W) it timed
+# every candidate beside the tiled kernel and the split kernel won at
+# every stage it can take (2.3-18x at the flagship 8^2 to 32^2,
+# 2.2-2.7x at 64^2 to 256^2; 14-70x at dragon_sss.ini's 2^2 to 8^2,
+# 1.4-59x at its 1024^2 stages; 2.9-3.5x at the bs-2 recipe's).
 # The flagship deep stages (8^2 to 32^2) keep the fastest plan with
 # S > 1 (at 32^2 bf16 bs 1 it is 7% behind an S = 1 plan); from 64^2 on,
 # with tiles enough for the card, S = 1 won. bf16 O = 4 stays tiled (no
@@ -315,6 +326,22 @@ _SPLIT_TUNED = {
     (4, 4, 4, 2560, 256, 4): (2, 4, 8, 64),
     (4, 8, 8, 1280, 128, 2): (1, 4, 2, 64),
     (4, 8, 8, 1280, 128, 4): (4, 1, 2, 64),
+    # dragon_sss.ini at uvh = uvw = 1024, bs 4.
+    (4, 512, 512, 40, 4, 4): (8, 8, 1, 64),
+    (4, 256, 256, 80, 8, 2): (8, 8, 1, 64),
+    (4, 256, 256, 80, 8, 4): (8, 8, 1, 64),
+    (4, 128, 128, 160, 16, 2): (8, 4, 1, 64),
+    (4, 128, 128, 160, 16, 4): (8, 4, 1, 64),
+    (4, 64, 64, 320, 32, 2): (8, 4, 2, 64),
+    (4, 64, 64, 320, 32, 4): (8, 4, 2, 64),
+    (4, 32, 32, 640, 64, 2): (4, 4, 2, 64),
+    (4, 32, 32, 640, 64, 4): (4, 4, 2, 32),
+    (4, 16, 16, 1280, 128, 2): (1, 8, 2, 32),
+    (4, 16, 16, 1280, 128, 4): (2, 4, 2, 32),
+    (4, 8, 8, 2560, 256, 2): (4, 1, 2, 64),
+    (4, 8, 8, 2560, 256, 4): (4, 1, 2, 32),
+    (4, 4, 4, 4096, 512, 2): (4, 2, 8, 64),
+    (4, 4, 4, 4096, 512, 4): (4, 2, 8, 32),
     # sphere_synthetic.ini (128^2, depth 32), bs 2.
     (2, 16, 16, 128, 16, 2): (1, 4, 1, 64),
     (2, 16, 16, 128, 16, 4): (2, 2, 1, 64),
@@ -366,13 +393,15 @@ def _contract_split_candidates(n, h, w, c, o, itemsize):
 # The split contract route's plans, keyed (n, h, w, c, o, itemsize) of
 # the input: the shapes where `python3 chip_smoke.py --sweep` on an H100
 # SXM (700 W) timed every candidate beside the tiled kernel and the
-# fastest split plan beat it, each at that plan. It beat it at all 72
-# keys swept (36 shapes: the flagship contract stages at bs 1 and 4, and
-# the stages of dragon_sss.ini at bs 4 and sphere_synthetic.ini at bs 2;
-# in both dtypes): 1.1-2.1x at 512^2 bs 4, 2.7-6.6x on the flagship
-# 16^2 and 32^2 stages, 18-34x on dragon_sss's 1024-channel 8^2 and 4^2
-# stages, which run clusters of 16 (as do most 16^2 stages). A shape of
-# another recipe or batch size joins once a sweep has timed it.
+# fastest split plan beat it, each at that plan. It beat it at all 102
+# keys swept (51 shapes: the flagship contract stages at bs 1 and 4, and
+# the stages of dragon_sss.ini at bs 4 at 512^2 and 1024^2 and of
+# sphere_synthetic.ini at bs 2; in both dtypes): 1.1-2.1x at 512^2 bs 4,
+# 2.7-6.6x on the flagship 16^2 and 32^2 stages, 18-34x on dragon_sss's
+# 1024-channel 8^2 and 4^2 stages, which run clusters of 16 (as do most
+# 16^2 stages); at 1024^2, 1.03-2.1x on the 64^2 to 1024^2 stages,
+# 2.3-2.8x at 32^2, 7.9-28x on the 1024-channel 16^2 and 8^2 stages. A
+# shape of another recipe or batch size joins once a sweep has timed it.
 _CONTRACT_SPLIT_TUNED = {
     # flagship stages, bs 1
     (1, 512, 512, 16, 16, 2): (8, 8, 1, 64),
@@ -436,6 +465,38 @@ _CONTRACT_SPLIT_TUNED = {
     (4, 4, 4, 1024, 1024, 4): (2, 2, 16, 64),
     (4, 4, 4, 2048, 1024, 2): (2, 2, 16, 64),
     (4, 4, 4, 2048, 1024, 4): (2, 2, 16, 64),
+    # dragon_sss.ini at uvh = uvw = 1024, bs 4 (its 8^2 1024 -> 1024
+    # stage is the key above)
+    (4, 1024, 1024, 16, 16, 2): (8, 8, 1, 64),
+    (4, 1024, 1024, 16, 16, 4): (8, 8, 1, 64),
+    (4, 1024, 1024, 32, 16, 2): (8, 8, 1, 64),
+    (4, 1024, 1024, 32, 16, 4): (8, 8, 1, 64),
+    (4, 512, 512, 16, 32, 2): (8, 8, 1, 64),
+    (4, 512, 512, 16, 32, 4): (8, 8, 1, 64),
+    (4, 512, 512, 32, 32, 2): (8, 8, 1, 64),
+    (4, 512, 512, 32, 32, 4): (8, 8, 1, 64),
+    (4, 256, 256, 32, 64, 2): (4, 8, 1, 64),
+    (4, 256, 256, 32, 64, 4): (4, 8, 1, 64),
+    (4, 256, 256, 64, 64, 2): (4, 8, 1, 64),
+    (4, 256, 256, 64, 64, 4): (4, 8, 1, 64),
+    (4, 128, 128, 64, 128, 2): (4, 8, 2, 64),
+    (4, 128, 128, 64, 128, 4): (4, 8, 2, 64),
+    (4, 128, 128, 128, 128, 2): (8, 4, 2, 64),
+    (4, 128, 128, 128, 128, 4): (8, 4, 2, 64),
+    (4, 64, 64, 128, 256, 2): (4, 4, 2, 64),
+    (4, 64, 64, 128, 256, 4): (4, 4, 2, 32),
+    (4, 64, 64, 256, 256, 2): (4, 4, 2, 64),
+    (4, 64, 64, 256, 256, 4): (4, 4, 2, 32),
+    (4, 32, 32, 256, 512, 2): (4, 2, 2, 32),
+    (4, 32, 32, 256, 512, 4): (4, 8, 8, 64),
+    (4, 32, 32, 512, 512, 2): (4, 2, 2, 32),
+    (4, 32, 32, 512, 512, 4): (4, 8, 8, 64),
+    (4, 16, 16, 512, 1024, 2): (4, 4, 8, 64),
+    (4, 16, 16, 512, 1024, 4): (4, 4, 8, 64),
+    (4, 16, 16, 1024, 1024, 2): (4, 4, 8, 64),
+    (4, 16, 16, 1024, 1024, 4): (4, 4, 8, 64),
+    (4, 8, 8, 2048, 1024, 2): (4, 4, 16, 64),
+    (4, 8, 8, 2048, 1024, 4): (4, 4, 16, 64),
     # sphere_synthetic.ini's stages, bs 2
     (2, 128, 128, 16, 16, 2): (8, 8, 1, 64),
     (2, 128, 128, 16, 16, 4): (8, 8, 1, 64),
@@ -555,12 +616,27 @@ def _check(kind, x, w1, b1, w2, b2):
         raise ValueError("%s: tensor too large for 32-bit offsets" % kind)
 
 
+@functools.lru_cache(maxsize=None)
+def _warn_unmeasured(kind, key):
+    """Once per shape: the split kernel could take it, but no sweep
+    measured a plan, so it runs tiled."""
+    candidates = (_contract_split_candidates if kind == "contract_stage"
+                  else _split_candidates)
+    if candidates(*key):
+        logger.warn("%s %s (n, h, w, c, o, itemsize): no measured split "
+                    "plan; runs tiled", kind, key)
+
+
 def _expand_route(x, w1, w2, c, o):
     """The split plan an expand call takes (_split_plan, if the pointers
     allow 16-byte copies), or None for the tiled kernel."""
     if any(t.data_ptr() % 16 for t in (x, w1, w2)):
         return None
-    return _split_plan(*x.shape[:3], c, o, x.element_size())
+    key = (*x.shape[:3], c, o, x.element_size())
+    plan = _split_plan(*key)
+    if plan is None:
+        _warn_unmeasured("expand_stage", key)
+    return plan
 
 
 def _contract_route(x, w1, w2, c, o):
@@ -568,7 +644,11 @@ def _contract_route(x, w1, w2, c, o):
     pointers allow 16-byte copies), or None for the tiled kernel."""
     if any(t.data_ptr() % 16 for t in (x, w1, w2)):
         return None
-    return _contract_split_plan(*x.shape[:3], c, o, x.element_size())
+    key = (*x.shape[:3], c, o, x.element_size())
+    plan = _contract_split_plan(*key)
+    if plan is None:
+        _warn_unmeasured("contract_stage", key)
+    return plan
 
 
 def _launch(kind, x, w1, b1, w2, b2, slope, return_y1, plan=None,
@@ -611,6 +691,7 @@ def _launch(kind, x, w1, b1, w2, b2, slope, return_y1, plan=None,
         raise RuntimeError("%s kernel launch failed: %s (%s, x %s, O=%d)" % (
             kind, msg(err).decode(), what, tuple(x.shape), o))
     LAUNCHES[kind] += 1
+    ROUTES[kind]["tiled" if split is None else "split"] += 1
     return (y2, y1) if return_y1 else y2
 
 

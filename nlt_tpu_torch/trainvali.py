@@ -212,19 +212,24 @@ def maintain_epoch_queue(queue_, new_epoch_dir):
 
 
 # nlt_tpu's threshold, measured on a TPU with XLA's flat row gather (a
-# bs-8 512^2 step slowed ~3x past it); it was not measured on this card.
-# Kept so the port splits batches exactly where nlt_tpu does and the two
-# compare; the flagship shape, 4 x 512^2 = 1,048,576 rows, is under it.
+# bs-8 512^2 step slowed ~3x past it). Kept so the port splits batches
+# exactly where nlt_tpu does and the two compare, except on a CUDA card:
+# there a 4 x 1024^2 step (4,194,304 rows) took 72 ms whole against
+# 94-98 ms as four bs-1 microbatches on an H100, so the fence does not
+# fire.
 GATHER_CLIFF_ROWS = 1_500_000
 
 
-def fence_grad_accum(config, n_devices=1, n_tile=1):
+def fence_grad_accum(config, n_devices=1, n_tile=1, device=None):
     """nlt_tpu's fence: if the per-device microbatch would cross
     GATHER_CLIFF_ROWS resample rows and grad_accum is not set, raise it
     to the smallest divisor of bs that fences it (the accumulated
     gradient is the same); if grad_accum is set, warn and keep it.
-    Returns the grad_accum to use."""
+    On a CUDA `device` the gather cliff is not there: the configured
+    grad_accum (default 1) stands. Returns the grad_accum to use."""
     grad_accum = config.get_int("grad_accum", 1)
+    if device is not None and torch.device(device).type == "cuda":
+        return grad_accum
     n_data_devices = max(1, n_devices // max(n_tile, 1))
     bs_total = config.get_int("bs")
 
@@ -455,7 +460,7 @@ def _main(args, device, mesh):
     mesh_mod.check_tile_config(config, mesh.n_tile)
     shard_id, num_shards = mesh.process_data_shard()
     grad_accum = fence_grad_accum(config, n_devices=world,
-                                  n_tile=mesh.n_tile)
+                                  n_tile=mesh.n_tile, device=device)
     if grad_accum > 1:
         assert config.get_int("bs") % grad_accum == 0, \
             "bs must be divisible by grad_accum"

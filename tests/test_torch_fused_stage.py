@@ -4,6 +4,7 @@ Pallas kernels in interpret mode, plain and lane-packed, and against
 the JAX references; plus the CUDA launch plan, which is plain Python.
 Inputs come from a numpy seed and go to both packages."""
 
+import functools
 import importlib.util
 import os
 
@@ -240,7 +241,8 @@ def test_split_route_only_where_measured():
               for kind, c, o, h in stages if kind == "expand_stage"
               for item in (2, 4)}
     assert {k for k in recipe if tfs._split_plan(*k) is None} == {
-        (2, 64, 64, 40, 4, 2), (4, 256, 256, 40, 4, 2)}
+        (2, 64, 64, 40, 4, 2), (4, 256, 256, 40, 4, 2),
+        (4, 512, 512, 40, 4, 2)}
 
 
 def test_split_geometry_by_hand():
@@ -601,20 +603,24 @@ def test_contract_split_indexing_matches_plain_version(rng, shape, o, plan,
     _close(y1, want_y1, TOL)
 
 
-@pytest.mark.parametrize("recipe", ["dragon_sss.ini", "sphere_synthetic.ini"])
+@pytest.mark.parametrize("recipe", ["dragon_sss.ini", "sphere_synthetic.ini",
+                                    "dragon_sss.ini@uv1024"])
 def test_recipe_stages_are_the_models_calls(recipe, monkeypatch):
     """chip_smoke.RECIPE_STAGES lists the stage calls the port's model
-    makes under the recipe's keys: the stage ops replaced by a recorder
-    that returns zeros of the output shape, one forward at the recipe's
-    batch size. dragon_sss runs at 256^2 (its stages' channel widths are
-    what differ from the flagship; the spatial sizes are scaled back)."""
+    makes under the recipe's keys ("@uv<n>": at uvh = uvw = n): the stage
+    ops replaced by a recorder that returns zeros of the output shape,
+    one forward at the recipe's batch size. The depth-1024 recipes run at
+    256^2 (their stages' channel widths are what differ from the
+    flagship; the spatial sizes are scaled back)."""
     from nlt_tpu_torch.models.nlt import Model
     from nlt_tpu_torch.utils import config as tconfig
 
     n_want, dtype, stages = _chip_smoke().RECIPE_STAGES[recipe]
-    cfg = tconfig.read_config(os.path.join(ROOT, "nlt_tpu", "config", recipe))
-    scale = 2 if cfg.get_int("depth") > 256 else 1
-    res = cfg.get_int("uvh") // scale
+    ini, _, uv = recipe.partition("@uv")
+    cfg = tconfig.read_config(os.path.join(ROOT, "nlt_tpu", "config", ini))
+    full = int(uv) if uv else cfg.get_int("uvh")
+    res = 256 if cfg.get_int("depth") > 256 else full
+    scale = full // res
     for key in ("uvh", "uvw", "imh", "imw"):
         cfg.set(key, str(res))
     monkeypatch.setenv("NLT_TPU_FUSED_STAGE", "1")
@@ -714,3 +720,131 @@ def test_custom_op_fake_launches_nothing(rng):
             tfs.OPS["expand_stage"](args[0], args[3], args[2], args[3],
                                     args[4], 0.3)
     assert tfs.LAUNCHES == {"contract_stage": 0, "expand_stage": 0}
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """_launch on CPU tensors: the libraries' launches return success and
+    write nothing, the CUDA device and stream are stubbed."""
+    import contextlib
+    import types
+
+    ok = lambda *a: 0  # noqa: E731
+    lib = types.SimpleNamespace(launch=ok, error_string=ok,
+                                nlt_contract_stage=ok, nlt_expand_stage=ok,
+                                nlt_error_string=ok)
+    monkeypatch.setattr(tfs, "_split_lib", lambda kind: lib)
+    monkeypatch.setattr(tfs, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    tfs.reset_launches()
+    yield
+    tfs.reset_launches()
+
+
+def _stage_args(n, h, c, o):
+    return (torch.zeros(n, h, h, c), torch.zeros(2, 2, c, o), torch.zeros(o),
+            torch.zeros(2, 2, o, o), torch.zeros(o))
+
+
+def test_routes_count_launches_by_route(fake_launch):
+    """ROUTES counts each launch once, on the route it took, beside
+    LAUNCHES: a measured shape on the split kernel, an unmeasured one and
+    a forced tiled plan on the tiled kernel, a forced split plan on the
+    split kernel. Its counters are registered with graph, as LAUNCHES
+    is, so a replay adds what its capture counted."""
+    from nlt_tpu_torch.parallel import graph
+
+    assert all(any(c is r for c in graph.COUNTERS)
+               for r in tfs.ROUTES.values())
+    measured = _stage_args(1, 32, 256, 256)
+    tfs._launch("contract_stage", *measured, 0.3, False)
+    tfs._launch("contract_stage", *_stage_args(1, 6, 40, 33), 0.3, False)
+    tfs._launch("contract_stage", *measured, 0.3, False, plan=(1, 1, 64, 64))
+    tfs._launch("expand_stage", *_stage_args(1, 8, 1024, 128), 0.3, True)
+    tfs._launch("expand_stage", *_stage_args(1, 4, 40, 4), 0.3, False,
+                split=(1, 1, 1, 32))
+    assert tfs.ROUTES == {"contract_stage": {"split": 1, "tiled": 2},
+                          "expand_stage": {"split": 2, "tiled": 0}}
+    assert tfs.LAUNCHES == {"contract_stage": 3, "expand_stage": 2}
+    tfs.reset_launches()
+    assert tfs.ROUTES == {"contract_stage": {"split": 0, "tiled": 0},
+                          "expand_stage": {"split": 0, "tiled": 0}}
+
+
+def test_routes_of_a_replay(fake_launch, monkeypatch):
+    """A captured program's replay adds the routes its capture counted."""
+    from nlt_tpu_torch.parallel import graph
+    from tests.test_torch_graph import EmulatedGraphs
+
+    monkeypatch.setattr(graph, "_graphs_on", lambda device: EmulatedGraphs)
+    monkeypatch.setattr(graph, "eager_reason", lambda *a, **kw: None)
+    args = _stage_args(1, 8, 1024, 128)
+    run = graph.Captured(lambda x: (tfs._launch(
+        "expand_stage", x, *args[1:], 0.3, False), tfs._launch(
+        "contract_stage", *_stage_args(1, 6, 40, 33), 0.3, False))[0],
+        name="routes")
+    for i in range(1, 4):
+        run(args[0])
+        assert tfs.ROUTES == {"contract_stage": {"split": 0, "tiled": i},
+                              "expand_stage": {"split": i, "tiled": 0}}
+    assert (run.captures, run.replays) == (1, 2)
+
+
+def test_unmeasured_shape_warns_once(capsys, monkeypatch):
+    """A shape the split kernel could take but no sweep measured runs
+    tiled and says so once, naming the shape; a shape the split kernel
+    cannot take (bf16 O = 4) and a measured one say nothing."""
+    monkeypatch.setattr(tfs, "_warn_unmeasured",
+                        functools.lru_cache(maxsize=None)(
+                            tfs._warn_unmeasured.__wrapped__))
+    x, w1, _, w2, _ = _stage_args(3, 32, 256, 256)
+    capsys.readouterr()
+    for _ in range(3):
+        assert tfs._contract_route(x, w1, w2, 256, 256) is None
+    out = capsys.readouterr().out
+    assert out.count("no measured split plan; runs tiled") == 1
+    assert "(3, 32, 32, 256, 256, 4)" in out
+    xe, w1e, _, w2e, _ = (t.bfloat16() for t in _stage_args(4, 256, 40, 4))
+    assert tfs._expand_route(xe, w1e, w2e, 40, 4) is None
+    xm, w1m, _, w2m, _ = _stage_args(1, 8, 1024, 128)
+    assert tfs._expand_route(xm, w1m, w2m, 1024, 128) is not None
+    assert "no measured split plan" not in capsys.readouterr().out
+
+
+def test_uv1024_stages_have_split_plans():
+    """Every fused stage of benchmark/configs/dragon_sss_uv1024.json's
+    training step (cost/stages.fused_launches), in both dtypes, has a
+    measured split plan, but the bf16 O = 4 stage (no 16-byte O / S row;
+    the sweep found no shape faster tiled); each plan is one the kernel
+    takes: 16-byte copies of C and the O / S slice, shared memory and
+    thread items within a block (the checks every key passes)."""
+    import json
+
+    from benchmark.cost import stages
+
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "dragon_sss_uv1024.json")) as f:
+        cfg = json.load(f)
+    launches = stages.fused_launches(cfg, cfg["bs"], "train")
+    assert len(launches) == 24
+    tiled = set()
+    for op, shape, _, o in launches:
+        for item in (2, 4):
+            key = (*shape, o, item)
+            contract = op == "contract_stage"
+            plan = (tfs._contract_split_plan if contract
+                    else tfs._split_plan)(*key)
+            if plan is None:
+                tiled.add(key)
+                continue
+            th, tw, s, ch = plan
+            fits = tfs._contract_split_fits if contract else tfs._split_fits
+            geometry = (tfs._contract_split_geometry if contract
+                        else tfs._split_geometry)
+            assert fits(shape[3], o, s, item)
+            smem, r1, r2 = geometry(th, tw, o, s, ch, item)
+            assert smem <= tfs._SMEM_MAX and r1 and r2
+    assert tiled == {(4, 512, 512, 40, 4, 2)}

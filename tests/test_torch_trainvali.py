@@ -265,6 +265,24 @@ def test_fence_grad_accum_matches_nlt_tpu(bs, uv, grad_accum):
             == jtrainvali.fence_grad_accum(JConfig(cfg), n_devices=1))
 
 
+@pytest.mark.parametrize("bs,uv,grad_accum,on_cpu", [
+    (4, 1024, None, 4), (8, 512, None, 2), (4, 1024, 2, 2),
+    (4, 512, None, 1)])
+def test_fence_grad_accum_on_cuda(bs, uv, grad_accum, on_cpu):
+    """On a CUDA device the fence does not fire: the configured
+    grad_accum (1 unset) stands, also past the TPU's row count; on the
+    CPU (or no device given) nlt_tpu's fence splits as before."""
+    cfg = {"bs": bs, "uvh": uv, "uvw": uv}
+    if grad_accum is not None:
+        cfg["grad_accum"] = grad_accum
+    for device in ("cuda", torch.device("cuda", 0)):
+        assert ttrainvali.fence_grad_accum(TConfig(cfg), device=device) == (
+            grad_accum or 1)
+    for device in ("cpu", None):
+        assert ttrainvali.fence_grad_accum(TConfig(cfg),
+                                           device=device) == on_cpu
+
+
 def test_bare_config_name_reads_nlt_tpu_config_dir():
     assert ttrainvali.resolve_config_path("sphere512_specular.ini") == join(
         REPO, "nlt_tpu", "config", "sphere512_specular.ini")
