@@ -323,6 +323,18 @@ SCATTER_TOL = 1e-5
 #   the port's backward keeps float32. Emulated on a CPU at six flagship
 #   shapes: 2-6%; 2^-3.
 GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -3}
+# The stage backward's kernels (csrc/stage_bwd.cu) against the plain
+# backward (contract_stage_bwd / expand_stage_bwd) on the same saved
+# tensors, per gradient as a fraction of the plain gradient's largest
+# magnitude. Both form the same float32 products (bf16 operands exact,
+# dz1 as three exact bf16 terms) and differ in the order of the float32
+# sums alone:
+# - float32: sums of up to 4 * 10^6 products in another order; 1e-4,
+#   the forward checks' float32 bound;
+# - bfloat16: the same, then each gradient rounded to bf16 once on both
+#   sides, where two float32 sums a few ulps apart can round one bf16
+#   step apart (2^-8 of an entry): 2^-7.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 # K4 against its plain version, as a fraction of the plain output's
 # largest magnitude (at least 1): float32 sums of 4C <= 256 products in
 # another order (~1e-6); 1e-4 leaves a margin of 100.
@@ -1296,6 +1308,288 @@ def check_stage_grad(kind, shape, o, dtype, seed):
     return ok
 
 
+# Small backward shapes (kind, n, h, w, c, o): odd and thin channel counts
+# (one-element copies, O below one k16 step), grids no multiple of the
+# 8 x 8 tile (ragged tiles, tiles over several images), a 1 x 1 grid, odd
+# expand heights, C far above and below O, one pixel chunk and several.
+BWD_EDGES = [
+    ("contract_stage", 2, 12, 10, 5, 7),
+    ("contract_stage", 1, 14, 18, 3, 4),
+    ("contract_stage", 3, 2, 2, 9, 12),
+    ("contract_stage", 1, 6, 6, 40, 33),
+    ("contract_stage", 2, 34, 66, 16, 8),
+    ("contract_stage", 1, 8, 8, 1024, 8),
+    ("expand_stage", 2, 3, 5, 7, 5),
+    ("expand_stage", 1, 7, 6, 10, 4),
+    ("expand_stage", 3, 1, 1, 33, 17),
+    ("expand_stage", 1, 5, 3, 64, 128),
+    ("expand_stage", 2, 17, 33, 40, 4),
+]
+
+
+def bwd_sets():
+    """{set: [(kind, n, h, w, c, o)]} of the stage backwards to check: the
+    three training cells' stages (bs 4, every stage call of a step), the
+    flagship stages at bs 2 (two data ranks) and on two tile ranks (H/2 +
+    2 input rows for contract, H/2 + 1 for expand), and BWD_EDGES."""
+    sets = {"specular": [(k, 4, h, h, c, o) for k, c, o, h
+                         in FLAGSHIP_STAGES]}
+    for name, label in (("dragon_sss.ini", "sss"),
+                        ("dragon_sss.ini@uv1024", "sss_uv1024")):
+        n, _, stages = RECIPE_STAGES[name]
+        sets[label] = [(k, n, h, h, c, o) for k, c, o, h in stages]
+    sets["bs2"] = [(k, 2, h, h, c, o) for k, c, o, h in FLAGSHIP_STAGES]
+    sets["tile2"] = [
+        (k, 4, h // 2 + (2 if k == "contract_stage" else 1), h, c, o)
+        for k, c, o, h in FLAGSHIP_STAGES]
+    sets["edge"] = BWD_EDGES
+    return sets
+
+
+def bwd_shapes(edges=True):
+    """(set, kind, n, h, w, c, o) of every shape of bwd_sets, each once
+    (under the first set that has it)."""
+    out, seen = [], set()
+    for label, shapes in bwd_sets().items():
+        if label == "edge" and not edges:
+            continue
+        for shape in shapes:
+            if shape not in seen:
+                seen.add(shape)
+                out.append((label,) + shape)
+    return out
+
+
+def stage_bwd_cost(kind, n, h, w, c, o, item):
+    """(bytes, flops) the backward must move and do: x, y1, y2 and g read
+    once, dx written once, the weights read and their gradients written
+    once; 2 flops per multiply-add of the four products."""
+    if kind == "contract_stage":
+        py = n * (h // 2) * (w // 2)
+        macs = py * (4 * o * o + 4 * c * o) * 2
+    else:
+        py = n * 4 * h * w
+        macs = py * 4 * o * o * 2 + n * h * w * 4 * c * o * 2
+    nbytes = item * (2 * n * h * w * c + 3 * py * o
+                     + 2 * (4 * c * o + 4 * o * o + 2 * o))
+    return nbytes, 2 * macs
+
+
+def check_stage_bwd(label, kind, n, h, w, c, o, dtype, seed, slope=0.3,
+                    timing=False):
+    """The backward's kernels against the plain backward on one set of
+    saved tensors (the kernel forward's), twice (the same bits)."""
+    args = random_stage(n, h, w, c, o, dtype, seed)
+    y2, y1 = fs._launch(kind, *args, slope, True)
+    g = torch.randn(y2.shape, generator=torch.Generator().manual_seed(
+        seed + 1)).to("cuda", dtype)
+    saved = (*args, y1, y2, g, slope)
+    plain = fs._BWDS[kind](*saved)
+    got = fs._bwd_launch(kind, *saved)
+    again = fs._bwd_launch(kind, *saved)
+    torch.cuda.synchronize()
+    names = ("dx", "dw1", "db1", "dw2", "db2")
+    errs = {nm: float((a.float() - b.float()).abs().max()
+                      / max(float(b.float().abs().max()), 1e-30))
+            for nm, a, b in zip(names, got, plain)}
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    ok = (same and finite and max(errs.values()) <= BWD_TOL[dtype]
+          and all(a.dtype == b.dtype and a.shape == b.shape
+                  for a, b in zip(got, plain)))
+    contract = kind == "contract_stage"
+    plan = fs.bwd_plan(contract, n, h, w, c, o)
+    # The library's shared memory per kernel against the planner's mirror.
+    item = args[0].element_size()
+    smem = [fs.bwd_smem_bytes(k, contract, item, plan) for k in range(3)]
+    lib_smem = [fs._bwd_lib().nlt_stage_bwd_smem_bytes(
+        k, int(contract), item, plan.th, plan.tw, bn)
+        for k, bn in enumerate((plan.bn_dz1, plan.bn_dx, plan.bn_w))]
+    ok = ok and smem == lib_smem
+    rec = {"check": "stage_bwd_vs_plain", "set": label, "kernel": kind,
+           "x": [n, h, w, c], "o": o, "dtype": str(dtype)[6:],
+           "slope": slope, "plan": vars(plan), "rel_err": errs,
+           "tol": BWD_TOL[dtype], "same_bits": same, "smem": smem,
+           "smem_mirror": smem == lib_smem, "ok": ok}
+    if timing:
+        rec["ms"] = time_ms(lambda: fs._bwd_launch(kind, *saved), 5, 3)
+        rec["plain_ms"] = time_ms(lambda: fs._BWDS[kind](*saved), 5, 3)
+        nbytes, flops = stage_bwd_cost(kind, n, h, w, c, o,
+                                       args[0].element_size())
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = flops / PEAK_FLOPS[dtype] * 1e3
+        rec.update(bound_ms=max(t_b, t_o),
+                   bound_by="bytes" if t_b >= t_o else "operations",
+                   launches=4 + (plan.ks > 1) + (plan.ksx > 1),
+                   kernel_us=bwd_kernel_us(kind, saved))
+    emit(**rec)
+    return rec
+
+
+def bwd_kernel_us(kind, saved):
+    """Device microseconds of each launch of one stage backward
+    (torch.profiler), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fs._bwd_launch(kind, *saved)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fs._bwd_launch(kind, *saved)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us:
+            name = re.sub(r"^void \(anonymous namespace\)::", "", ev.key)
+            out[name[:48]] = round(float(us), 2)
+    return out
+
+
+def bwd_check_phase(edges=True):
+    """Every backward shape of bwd_shapes in both dtypes (both slopes on
+    the edges); the cells' shapes timed in bf16 beside the plain
+    backward. Returns (ok, per-set totals)."""
+    recs, totals = [], {}
+    for i, (label, kind, n, h, w, c, o) in enumerate(bwd_shapes(edges)):
+        for dtype in (torch.bfloat16, torch.float32):
+            timed = dtype is torch.bfloat16 and label in (
+                "specular", "sss", "sss_uv1024")
+            for slope in ((0.3, 0.0) if label == "edge" else (0.3,)):
+                r = check_stage_bwd(label, kind, n, h, w, c, o, dtype,
+                                    500 + i, slope, timing=timed)
+                recs.append(r)
+                if timed:
+                    t = totals.setdefault(label, {"ms": 0.0, "plain_ms": 0.0,
+                                                  "bound_ms": 0.0,
+                                                  "stages": 0})
+                    for k in ("ms", "plain_ms", "bound_ms"):
+                        t[k] += r[k]
+                    t["stages"] += 1
+        torch.cuda.empty_cache()
+    ok = all(r["ok"] for r in recs)
+    worst = {}
+    for r in recs:
+        key = "%s_%s" % (r["set"], r["dtype"])
+        worst[key] = max(worst.get(key, 0.0), max(r["rel_err"].values()))
+    emit(phase="stage_bwd_checks", checked=len(recs), totals_bf16=totals,
+         worst_rel_err=worst, ok=ok)
+    return ok, totals
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """The stage backward on the card as the plain version (the path
+    before csrc/stage_bwd.cu), eagerly."""
+    orig = fs._backward
+    fs._backward = lambda kind, *a: fs._BWDS[kind](*a)
+    try:
+        with graph.disabled():
+            yield
+    finally:
+        fs._backward = orig
+
+
+def bwd_profile_phase():
+    """The flagship training step (bs 4, bf16) profiled by category with
+    the plain backward and with the kernels: the kernels launched under
+    the stage backward's autograd nodes, none of them a GEMM, cast or
+    stack. Returns ok."""
+    os.environ["NLT_TPU_FUSED_STAGE"] = "1"
+    model = Model(train_cfg("bfloat16"), device="cuda")
+    tx = train_mod.make_optimizer(model.config.get_float("lr"),
+                                  model.config.get_float("mgm"))
+    state = train_mod.init_state(model, tx, torch.Generator().manual_seed(0))
+    extract = train_mod.make_static_extractor(model)
+    batch = _train_batch(30)
+    statics = extract(state["params"], batch)
+    step = train_mod.make_train_step(model, tx, cached_statics=True,
+                                     with_vis=False)
+    with graph.disabled():
+        step(state, batch, statics)   # warm-up
+    # The layout of every gradient the kernels get (a channel slice of a
+    # wider tensor goes as it is; any other is copied first).
+    layouts, launch = [], fs._bwd_launch
+
+    def recorded(kind, *a):
+        g = a[-2]
+        layouts.append((kind, tuple(g.shape), tuple(g.stride()),
+                        fs._pixel_stride(g)))
+        return launch(kind, *a)
+
+    out = {}
+    for label, ctx in (("plain_backward", plain_backward),
+                       ("kernels", contextlib.nullcontext)):
+        with ctx():
+            step(state, batch, statics)
+            if label == "kernels":
+                fs._bwd_launch = recorded
+            try:
+                out[label] = profile_train_step(step, state, batch, statics,
+                                                label="stage_bwd_" + label)
+            finally:
+                fs._bwd_launch = launch
+    names = (out["kernels"] or {}).get("stage_backward_kernels", {})
+    ours = ("stage_dz1_kernel", "stage_dz1_sum_kernel", "stage_dx_kernel",
+            "stage_dx_sum_kernel", "stage_wgrad_kernel",
+            "stage_wgrad_sum_kernel")
+    others = {k: v for k, v in names.items()
+              if not any(o in k for o in ours)}
+    # No GEMM, cast or concatenation of the plain backward's is left.
+    banned = {k: v for k, v in others.items() if any(
+        b in k for b in ("gemm", "cutlass", "cublas", "xmma", "direct_copy",
+                         "CatArray", "splitK"))}
+    copied = [r for r in layouts if r[3] is None]
+    ok = bool(names) and not banned
+    emit(phase="stage_bwd_profile",
+         stage_backward_ms={k: (v or {}).get("by_category_ms", {}).get(
+             "stage backward") for k, v in out.items()},
+         device_ms_per_step={k: (v or {}).get("device_ms_per_step")
+                             for k, v in out.items()},
+         kernels_under_stage_backward=names, other_kernels=others,
+         banned_kernels=banned, launches_seen=len(layouts),
+         gradients_copied=copied, ok=ok)
+    return ok
+
+
+def bwd_steps_phase(seconds=3, seed=2 ** 31 + 7):
+    """Each training cell of the benchmark run briefly in this process:
+    per step, BWD_LAUNCHES equals the forward's LAUNCHES (12 + 6 in
+    dragon_specular, 16 + 8 in dragon_sss and at 1024^2), ROUTES sum to
+    LAUNCHES, and the cell stays correct. Returns ok."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import run as bench_run
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    want = {"dragon_specular.train": (12, 6), "dragon_sss.train": (16, 8),
+            "dragon_sss_uv1024.train": (16, 8)}
+    ok = True
+    for cell, (nc, ne) in want.items():
+        _reset_launches()
+        line, run = bench_run.run_cell(bench, cell, seed, seconds, False)
+        steps = run.attempted
+        fwd, bwd = dict(fs.LAUNCHES), dict(fs.BWD_LAUNCHES)
+        routes = {k: sum(fs.ROUTES[k].values()) for k in fs.ROUTES}
+        per_step = {k: bwd[k] / max(steps, 1) for k in bwd}
+        cell_ok = (bool(line.get("correct")) and fwd == bwd
+                   and routes == fwd
+                   and fwd == {"contract_stage": nc * steps,
+                               "expand_stage": ne * steps})
+        emit(phase="stage_bwd_steps", cell=cell, steps=steps,
+             launches=fwd, bwd_launches=bwd, routes=routes,
+             bwd_per_step=per_step, correct=line.get("correct"),
+             end_to_end={k: line.get(k) for k in (
+                 "train_texels_per_s", "setup_s")},
+             checks=line.get("checks"), ok=cell_ok)
+        ok &= cell_ok
+        del run
+        torch.cuda.empty_cache()
+    return ok
+
+
 def _direct(kind):
     """The stage op's inference call as a bare ctypes launch."""
     def launch(x, w1, b1, w2, b2, slope):
@@ -1418,7 +1712,7 @@ def profile_train_step(step, state, batch, statics, label="barron_lpips"):
              "expand_kernel": "fused forward (K3)",
              "expand_split_kernel": "fused forward (K3)",
              "scatter_add_rows_kernel": "resample backward scatter (K1)"}
-    cats, total, rest, by_name = {}, 0.0, {}, {}
+    cats, total, rest, by_name, bwd_names = {}, 0.0, {}, {}, {}
     for ev in prof.key_averages():
         # Device events only; the losses' and optimizer's ranges show up
         # there too, as GPU spans over their kernels: not added.
@@ -1443,6 +1737,9 @@ def profile_train_step(step, state, batch, statics, label="barron_lpips"):
                 node = node.cpu_parent
             if cat is not None:
                 cats[cat] = cats.get(cat, 0.0) + k.duration / 1e3
+                if cat == "stage backward":
+                    bwd_names[k.name[:150]] = (
+                        bwd_names.get(k.name[:150], 0.0) + k.duration / 1e3)
             else:
                 key = "%s <- %s" % (k.name[:60], ev.name)
                 rest[key] = rest.get(key, 0.0) + k.duration / 1e3
@@ -1450,17 +1747,22 @@ def profile_train_step(step, state, batch, statics, label="barron_lpips"):
         emit(phase="train_profile", label=label, wall_ms_per_step=wall_ms,
              device_ms_per_step="not measured",
              note="torch.profiler recorded no device time")
-        return
+        return None
     cats["other (loss backward, resample, elementwise, copies)"] = max(
         0.0, total - sum(cats.values()))
-    emit(phase="train_profile", label=label, bs=TRAIN_BS,
-         wall_ms_per_step=wall_ms,
-         device_ms_per_step=total, host_idle_share=1 - total / wall_ms,
-         by_category_ms=dict(sorted(cats.items(), key=lambda kv: -kv[1])),
-         top_other_kernels_ms=dict(sorted(
-             rest.items(), key=lambda kv: -kv[1])[:15]),
-         top_device_events_ms=dict(sorted(
-             by_name.items(), key=lambda kv: -kv[1])[:15]))
+    rec = dict(phase="train_profile", label=label, bs=TRAIN_BS,
+               wall_ms_per_step=wall_ms,
+               device_ms_per_step=total, host_idle_share=1 - total / wall_ms,
+               by_category_ms=dict(sorted(cats.items(),
+                                          key=lambda kv: -kv[1])),
+               stage_backward_kernels=dict(sorted(
+                   bwd_names.items(), key=lambda kv: -kv[1])),
+               top_other_kernels_ms=dict(sorted(
+                   rest.items(), key=lambda kv: -kv[1])[:15]),
+               top_device_events_ms=dict(sorted(
+                   by_name.items(), key=lambda kv: -kv[1])[:15]))
+    emit(**rec)
+    return rec
 
 
 def compare_steps(label, state, batches, statics, model, tx, f32):
@@ -5124,6 +5426,10 @@ def main(argv=None):
                  "--n-tile"):
         ap.add_argument(name, type=int, default=0)
     ap.add_argument("--time-reduce", action="store_true")
+    # The stage backward's phase alone: checks, profile and the cells'
+    # steps (--bwd), or the checks alone (--bwd-quick).
+    ap.add_argument("--bwd", action="store_true")
+    ap.add_argument("--bwd-quick", action="store_true")
     for name in ("--backend", "--result", "--dtype", "--ckpt"):
         ap.add_argument(name, default=None)
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -5158,6 +5464,7 @@ def main(argv=None):
     fs._lib()
     for kind in fs._SPLIT_SOURCES:
         fs._split_lib(kind)
+    fs._bwd_lib()
     ptxas = [ln.strip() for name in sources
              for ln in _build.BUILD_LOGS.get(name, "").splitlines()
              if "registers" in ln or "spill" in ln]
@@ -5167,6 +5474,18 @@ def main(argv=None):
         ok = split_sweep(args.out, sweep_shapes(args.sweep_recipe))
         emit(phase="split_sweep_all", ok=bool(ok))
         return 0 if ok else 1
+    if args.bwd or args.bwd_quick:
+        t0 = time.perf_counter()
+        ok, _ = bwd_check_phase()
+        if not args.bwd_quick:
+            ok &= bwd_profile_phase()
+            ok &= bwd_steps_phase()
+        emit(phase="stage_bwd_all", seconds=time.perf_counter() - t0,
+             ok=bool(ok))
+        if not ok:
+            print("chip_smoke: FAILED (%s)" % ", ".join(
+                dict.fromkeys(map(str, FAILED))), file=sys.stderr)
+        return 0 if ok else 1
 
     # 2. Kernels against their plain versions.
     t0 = time.perf_counter()
@@ -5175,6 +5494,13 @@ def main(argv=None):
     emit(phase="kernels", ok=kernels_ok, conv_stage_ok=conv_ok,
          seconds=time.perf_counter() - t0)
     ok &= kernels_ok and conv_ok
+
+    # 2b. The stage backward's kernels against the plain backward.
+    t0 = time.perf_counter()
+    bwd_ok, _ = bwd_check_phase()
+    bwd_ok &= bwd_profile_phase()
+    emit(phase="stage_bwd", ok=bool(bwd_ok), seconds=time.perf_counter() - t0)
+    ok &= bwd_ok
 
     # 3. Serving: the main path.
     t0 = time.perf_counter()

@@ -67,11 +67,19 @@ server does (the ctypes launch itself cannot be traced).
 
 Gradients: when an input requires grad, the op runs as the
 ``ContractStage`` / ``ExpandStage`` autograd Function, whose forward is
-the same kernel (or plain version) emitting y1 as well, and whose
-backward is a straight port of nlt_tpu's ``_contract_bwd_xla`` /
-``_expand_bwd_xla`` (matmuls in float32, each gradient cast to its
-primal's dtype), shared by both devices. nlt_tpu's backward is XLA, not
-Pallas, so there is no backward kernel to port.
+the same kernel (or plain version) emitting y1 as well. Its backward on
+a CPU tensor is the plain version (``contract_stage_bwd`` /
+``expand_stage_bwd``, a straight port of nlt_tpu's ``_contract_bwd_xla``
+/ ``_expand_bwd_xla``: matmuls in float32, each gradient cast to its
+primal's dtype). On a CUDA tensor it launches the hand-written backward
+of csrc/stage_bwd.cu (``stage_dz1_kernel``, ``stage_dx_kernel``,
+``stage_wgrad_kernel`` and the sums of their K slices and pixel chunks;
+planned by ``bwd_plan``), in either dtype; a shape it refuses raises. nlt_tpu's
+backward is XLA, not Pallas, so that kernel is new: it forms the plain
+version's float32 products (bf16 operands on the tensor cores, dz1 as
+three exact bf16 terms) and differs from it only in the order of the
+float32 sums. ``BWD_LAUNCHES`` counts the stage backwards that ran it
+(one per call; a replay adds what its capture counted).
 
 Numerics follow the Pallas kernels: float32 accumulation, the bias
 added in float32, y1 and y2 rounded to the activation dtype once each
@@ -83,6 +91,7 @@ each op sum in one order, so they agree bit for bit.
 
 import ctypes
 import functools
+import math
 import types
 
 import torch
@@ -99,6 +108,8 @@ LAUNCHES = graph.launch_counter({"contract_stage": 0, "expand_stage": 0})
 # The same launches by route, one counter per op.
 ROUTES = {kind: graph.launch_counter({"split": 0, "tiled": 0})
           for kind in LAUNCHES}
+# Stage backwards that ran the kernels of csrc/stage_bwd.cu, per op.
+BWD_LAUNCHES = graph.launch_counter({"contract_stage": 0, "expand_stage": 0})
 
 _SMS = 132                # streaming multiprocessors of an H100 SXM
 _SMEM_MAX = 232448        # dynamic shared memory a block may use
@@ -125,6 +136,7 @@ _CONTRACT_SPLIT_S = (1, 2, 4, 8, 16)
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        BWD_LAUNCHES[k] = 0
         ROUTES[k].update(split=0, tiled=0)
 
 
@@ -525,10 +537,27 @@ def _contract_split_plan(n, h, w, c, o, itemsize):
 
 
 _LIB = None
+_BWD_LIB = None
 # The split kernels' libraries (csrc/<source>.cu), by op.
 _SPLIT_SOURCES = {"contract_stage": "contract_split",
                   "expand_stage": "expand_split"}
 _SPLIT_LIBS = {}
+# Every source of the stages' kernels, forward and backward: the first
+# library asked for builds them all in one parallel nvcc call, so a
+# fresh checkout compiles the backward beside the forward, not after it.
+_SOURCES = ("fused_stage", "contract_split", "expand_split", "stage_bwd")
+_BUILT = []
+
+
+def _load(name):
+    """ctypes handle of csrc/<name>.cu; the first call builds _SOURCES."""
+    from . import _build
+
+    if not _BUILT:
+        _build.build(_SOURCES)
+        _BUILT.append(True)
+        _bwd_lib()  # loaded with the first forward library
+    return _build.load(name)
 
 
 def _split_lib(kind):
@@ -538,10 +567,8 @@ def _split_lib(kind):
     clocks, smem_bytes, items and error_string."""
     lib = _SPLIT_LIBS.get(kind)
     if lib is None:
-        from . import _build
-
         name = _SPLIT_SOURCES[kind]
-        so = _build.load(name)
+        so = _load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
         fns = {sfx: getattr(so, "nlt_" + name + sfx) for sfx in (
             "", "_clocks", "_smem_bytes", "_items", "_error_string")}
@@ -565,9 +592,7 @@ def _lib():
     """The kernels' library, built and typed at first use."""
     global _LIB
     if _LIB is None:
-        from . import _build
-
-        lib = _build.load("fused_stage")
+        lib = _load("fused_stage")
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.nlt_contract_stage, lib.nlt_expand_stage):
             fn.argtypes = [p] * 7 + [i] * 9 + [ctypes.c_float, i, p]
@@ -578,6 +603,24 @@ def _lib():
         lib.nlt_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _bwd_lib():
+    """The backward's library (csrc/stage_bwd.cu), built and typed at
+    first use."""
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = _load("stage_bwd")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.nlt_stage_bwd.argtypes = ([i] + [p] * 16 + [i] * 20
+                                      + [ctypes.c_float, i, p])
+        lib.nlt_stage_bwd.restype = i
+        lib.nlt_stage_bwd_smem_bytes.argtypes = [i] * 6
+        lib.nlt_stage_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.nlt_stage_bwd_error_string.argtypes = [i]
+        lib.nlt_stage_bwd_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
 
 
 def _check(kind, x, w1, b1, w2, b2):
@@ -697,8 +740,9 @@ def _launch(kind, x, w1, b1, w2, b2, slope, return_y1, plan=None,
 
 # ---------------------------------------------------------------------------
 # Backward (nlt_tpu/ops/fused_stage.py _contract_bwd_xla / _expand_bwd_xla):
-# plain PyTorch on both devices, from the y1 and y2 the forward emitted.
-# Float32 throughout; each gradient returns in its primal's dtype.
+# plain PyTorch, from the y1 and y2 the forward emitted: the CPU's
+# backward, and what the card's kernels are checked against. Float32
+# throughout; each gradient returns in its primal's dtype.
 # ---------------------------------------------------------------------------
 
 
@@ -765,8 +809,217 @@ def expand_stage_bwd(x, w1, b1, w2, b2, y1, y2, g, slope):
     return (dx.to(x.dtype), dw1.to(w1.dtype), db1, dw2, db2)
 
 
+# ---------------------------------------------------------------------------
+# Backward on the card (csrc/stage_bwd.cu): launch plan and wrapper
+# ---------------------------------------------------------------------------
+
+_BWD_PIXELS = 64         # pixels per tile (kBM)
+_BWD_KC = 32             # channels per K chunk of the data gradients (kBK)
+_BWD_WM = 32             # A channels per weight-gradient block (kWM)
+_BWD_THREADS = 128
+_BWD_BLOCKS = 8 * _SMS   # blocks the K slices and pixel chunks aim at
+_BWD_PART_MAX = 1 << 24  # float32 partials a weight gradient's chunks write
+
+
+def _bwd_tile(width):
+    """(rows, cols) of a 64-pixel tile over a grid `width` columns wide:
+    8 x 8, or as wide as the grid is (a tile then spans rows of several
+    images)."""
+    tw = next(t for t in (8, 4, 2, 1) if t <= width)
+    return _BWD_PIXELS // tw, tw
+
+
+def _bwd_bn(cols, sizes):
+    """The smallest channel slice of `sizes` that holds `cols`, else the
+    largest."""
+    return next((b for b in sizes if cols <= b), sizes[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(contract, n, h, w, c, o):
+    """The backward's launch plan for a stage with input (n, h, w, c) and
+    O output channels, from the shape alone:
+    - th x tw, xth x xtw: 64-pixel tiles of the y grid and the x grid;
+    - bn_dz1, bn_dx, bn_w: the channel slices of the dz1, dx and
+      weight-gradient products;
+    - ks, ksx: K slices of the dz1 and dx products (several where their
+      tiles and channel slices leave the card idle: the deep stages), each
+      of two K chunks or more;
+    - chunks2, chunks1: pixel chunks of dw2's and dw1's reductions, of
+      about equal length across both (so their blocks take about as long),
+      four tiles or more each, about _BWD_BLOCKS blocks in all, at most
+      _BWD_PART_MAX partials each."""
+    hy, wy = (h // 2, w // 2) if contract else (2 * h, 2 * w)
+    th, tw = _bwd_tile(wy)
+    xth, xtw = _bwd_tile(w)
+    bn_dz1 = _bwd_bn(o, (16, 32, 64))
+    bn_w = _bwd_bn(o, (16, 32))
+    kt2 = -(-n * hy // th) * -(-wy // tw)
+    kt1 = kt2 if contract else -(-n * h // xth) * -(-w // xtw)
+    bn_dx = _bwd_bn(4 * c if contract else c, (16, 32, 64))
+    nkc = -(-o // _BWD_KC)
+
+    def slices(blocks):
+        return max(1, min(-(-_BWD_BLOCKS // blocks), nkc // 2))
+
+    ks = slices(kt2 * -(-o // bn_dz1))
+    ksx = slices((kt2 if contract else kt1)
+                 * -(-(4 * c if contract else c) // bn_dx))
+    ntn = -(-o // bn_w)
+    tiles2, tiles1 = -(-o // _BWD_WM) * ntn, -(-c // _BWD_WM) * ntn
+    per = max(4, -(-(tiles2 * kt2 + tiles1 * kt1) // _BWD_BLOCKS))
+    chunks2 = max(1, min(-(-kt2 // per), _BWD_PART_MAX // (4 * o * o)))
+    chunks1 = max(1, min(-(-kt1 // per), _BWD_PART_MAX // (4 * c * o)))
+    return types.SimpleNamespace(
+        th=th, tw=tw, xth=xth, xtw=xtw, bn_dz1=bn_dz1, bn_dx=bn_dx,
+        bn_w=bn_w, ks=ks, ksx=ksx, chunks2=chunks2, chunks1=chunks1)
+
+
+def bwd_smem_bytes(kernel, contract, itemsize, plan):
+    """Dynamic shared memory of the backward's kernel 0 (dz1), 1 (dx) or
+    2 (weight gradients) under `plan`; mirrors csrc/stage_bwd.cu
+    smem_bytes."""
+    pad, nt = (8, 3) if itemsize == 2 else (4, 1)
+    ld = _BWD_KC + pad
+    halo = (plan.th + 1) * (plan.tw + 1) + 1
+    if kernel == 0:
+        rows = halo + 4 * plan.bn_dz1
+        out = _BWD_PIXELS * (plan.bn_dz1 + 4) * 4
+    elif kernel == 1:
+        rows = (nt * _BWD_PIXELS + plan.bn_dx if contract
+                else 4 * (nt * _BWD_PIXELS + plan.bn_dx))
+        out = _BWD_PIXELS * (plan.bn_dx + 4) * 4
+    if kernel < 2:
+        return max(_ceil_to(rows * ld * itemsize, 16), out)
+    lda, ldb = _BWD_WM + pad, plan.bn_w + pad
+    w2 = halo * lda + _BWD_PIXELS * ldb
+    w1 = (4 * _BWD_PIXELS * lda + nt * _BWD_PIXELS * ldb if contract
+          else _BWD_PIXELS * lda + nt * 4 * _BWD_PIXELS * ldb)
+    out = max(_BWD_WM * (plan.bn_w + 4) * 4, _BWD_THREADS * 8 * 4)
+    return max(_ceil_to(max(w2, w1) * itemsize, 16), out)
+
+
+def bwd_grids(contract, n, h, w, c, o, plan):
+    """Blocks of the launches: dz1 (x, y, z), dz1's slice sum (x,; 0 if
+    none), dx (x, y, z), dx's slice sum (x,; 0 if none), the weight
+    gradients (x,), their sum (x,)."""
+    hy, wy = (h // 2, w // 2) if contract else (2 * h, 2 * w)
+    ytiles = -(-n * hy // plan.th) * -(-wy // plan.tw)
+    xtiles = -(-n * h // plan.xth) * -(-w // plan.xtw)
+    ntn = -(-o // plan.bn_w)
+    wblocks = (-(-o // _BWD_WM) * ntn * plan.chunks2
+               + -(-c // _BWD_WM) * ntn * plan.chunks1)
+    total = ((plan.chunks2 > 1) * 4 * o * o + (plan.chunks1 > 1) * 4 * c * o
+             + 2 * o)
+
+    def blocks(elems, per):
+        return max(1, min(-(-elems // per), 8 * _SMS))
+
+    return ((ytiles, -(-o // plan.bn_dz1), plan.ks),
+            (blocks(n * hy * wy * o, 256) if plan.ks > 1 else 0,),
+            (ytiles if contract else xtiles,
+             -(-(4 * c if contract else c) // plan.bn_dx), plan.ksx),
+            (blocks(n * h * w * c, 256) if plan.ksx > 1 else 0,),
+            (wblocks,), (blocks(total, 64),))
+
+
+def bf16_terms(v):
+    """float32 v as three bfloat16 terms hi + mid + lo (hi = bf16(v), mid =
+    bf16(v - hi), lo = bf16(v - hi - mid)), as csrc/stage_bwd.cu splits
+    dz1 for the tensor cores; exact for |v| from 2^-100 up to bf16's
+    largest finite value (tests/test_torch_stage_bwd.py)."""
+    hi = v.to(torch.bfloat16)
+    r1 = v - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def _vec(channels, item, tensors):
+    """Elements per copy of rows of `channels` elements: the widest of 16,
+    8, 4, 2 bytes (or one element) that divides the rows and every
+    tensor's address."""
+    for v in (8, 4, 2, 1):
+        if v * item <= 16 and channels % v == 0 and all(
+                t.data_ptr() % (v * item) == 0 for t in tensors):
+            return v
+    return 1
+
+
+def _pixel_stride(g):
+    """Elements between two pixels of g if g is NHWC with its channels
+    contiguous and its pixels evenly spaced (a channel slice of a wider
+    tensor, as the gradient of a concatenation's operand is), else None."""
+    n, h, w, o = g.shape
+    st = g.stride()
+    if st[3] == 1 and st[2] >= o and st[1] == w * st[2] and (
+            n == 1 or st[0] == h * st[1]):
+        return st[2]
+    return None
+
+
+def _bwd_launch(kind, x, w1, b1, w2, b2, y1, y2, g, slope):
+    """Gradients (dx, dw1, db1, dw2, db2) through csrc/stage_bwd.cu, on
+    checked CUDA tensors; raises if the library refuses the launch."""
+    contract = kind == "contract_stage"
+    n, h, w, c = x.shape
+    o = w1.shape[3]
+    if g.dtype != y2.dtype or g.shape != y2.shape:
+        raise TypeError("%s backward: gradient %s %s for y2 %s %s" % (
+            kind, g.dtype, tuple(g.shape), y2.dtype, tuple(y2.shape)))
+    gs = _pixel_stride(g)
+    if gs is None:
+        g, gs = g.contiguous(), o
+    plan = bwd_plan(contract, n, h, w, c, o)
+    item = x.element_size()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dw1, db1 = (torch.empty_like(t) for t in (x, w1, b1))
+    dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
+    dz1 = torch.empty(y1.shape, **f32)
+    dy1p = (torch.empty((plan.ks,) + tuple(y1.shape), **f32)
+            if plan.ks > 1 else None)
+    dxp = (torch.empty((plan.ksx,) + tuple(x.shape), **f32)
+           if plan.ksx > 1 else None)
+    part = (torch.empty(plan.chunks2 * 4 * o * o + plan.chunks1 * 4 * c * o,
+                        **f32)
+            if max(plan.chunks2, plan.chunks1) > 1 else None)
+    partb = torch.empty((plan.chunks2 + plan.chunks1) * o, **f32)
+    vc = _vec(c, item, (x,))
+    vo = _vec(math.gcd(o, gs), item, (w1, w2, y1, y2, g))
+    vf = min(_vec(o, item, (y1,)), 4)
+    lib = _bwd_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.nlt_stage_bwd(
+            int(contract), x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            y1.data_ptr(), y2.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+            dz1.data_ptr(), *(t.data_ptr() if t is not None else None
+                              for t in (dy1p, dxp, part)), partb.data_ptr(),
+            n, h, w, c, o, gs, plan.th, plan.tw, plan.xth, plan.xtw,
+            plan.bn_dz1, plan.bn_dx, plan.bn_w, plan.ks, plan.ksx,
+            plan.chunks2, plan.chunks1, vc, vo, vf, float(slope),
+            int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError("%s backward launch failed: %s (x %s, O=%d, %s)"
+                           % (kind, lib.nlt_stage_bwd_error_string(err)
+                              .decode(), tuple(x.shape), o, vars(plan)))
+    BWD_LAUNCHES[kind] += 1
+    return dx, dw1, db1, dw2, db2
+
+
 _REFS = {"contract_stage": contract_stage_ref,
          "expand_stage": expand_stage_ref}
+_BWDS = {"contract_stage": contract_stage_bwd,
+         "expand_stage": expand_stage_bwd}
+
+
+def _backward(kind, x, w1, b1, w2, b2, y1, y2, g, slope):
+    """(dx, dw1, db1, dw2, db2): the plain version on the CPU, the kernels
+    of csrc/stage_bwd.cu on CUDA."""
+    if x.device.type == "cpu":
+        return _BWDS[kind](x, w1, b1, w2, b2, y1, y2, g, slope)
+    return _bwd_launch(kind, x, w1, b1, w2, b2, y1, y2, g, slope)
 
 
 def _forward(kind, x, w1, b1, w2, b2, slope):
@@ -789,7 +1042,8 @@ class ContractStage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return contract_stage_bwd(*ctx.saved_tensors, g, ctx.slope) + (None,)
+        return _backward("contract_stage", *ctx.saved_tensors, g,
+                         ctx.slope) + (None,)
 
 
 class ExpandStage(torch.autograd.Function):
@@ -804,7 +1058,8 @@ class ExpandStage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return expand_stage_bwd(*ctx.saved_tensors, g, ctx.slope) + (None,)
+        return _backward("expand_stage", *ctx.saved_tensors, g,
+                         ctx.slope) + (None,)
 
 
 # ---------------------------------------------------------------------------
