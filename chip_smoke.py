@@ -577,18 +577,26 @@ def check_stage(kind, args, slope=0.3, plan=None, timing=False, label="",
                "max_abs_err": err, "scale": scale,
                "tol": KERNEL_TOL[x.dtype] * scale, "ok": ok}
         if route == "split":
-            # Both routes sum in one order: y2 and y1 bit-equal to the
-            # tiled kernel's (reported, not gated).
+            # float32: both routes sum in one order, so y2 and y1 are
+            # bit-equal to the tiled kernel's. bfloat16: the split
+            # contract kernel sums on the tensor cores in another order,
+            # within K2_TOL of each output's largest entry (the expand
+            # kernel still sums in the tiled order: reported, not gated).
             y2t, y1t = fs._launch(kind, *args, slope, True,
                                   plan=_tiled_plan(kind, x, o))
             rec["equal_to_tiled"] = bool(torch.equal(y2k, y2t)
                                          and torch.equal(y1k, y1t))
             if x.dtype == torch.float32:
-                y2b, y1b = fs._launch(kind, *args, slope, True, split=split
-                                      or tuple(rplan))
-                rec["deterministic"] = bool(torch.equal(y2k, y2b)
-                                            and torch.equal(y1k, y1b))
-                rec["ok"] = ok = ok and rec["deterministic"]
+                ok = ok and rec["equal_to_tiled"]
+            elif kind == "contract_stage":
+                rec["rel_err_to_tiled"] = max(_max_rel(y2k, y2t),
+                                              _max_rel(y1k, y1t))
+                ok = ok and rec["rel_err_to_tiled"] <= K2_TOL
+            y2b, y1b = fs._launch(kind, *args, slope, True, split=split
+                                  or tuple(rplan))
+            rec["deterministic"] = bool(torch.equal(y2k, y2b)
+                                        and torch.equal(y1k, y1b))
+            rec["ok"] = ok = ok and rec["deterministic"]
         if timing:
             rec["ms"] = time_ms(lambda: run(False))
             if time_refs:
@@ -687,21 +695,39 @@ SPLIT_EDGES = [
 # the H100), 1x1 tiles, ragged last tiles (a y2 grid no multiple of the
 # tile), last tiles whose halo row and column leave the image (every
 # grid here), tiles no power of two, K = 4C below one chunk and not a
-# multiple of it, and every pixels-per-thread pair that occurs, (R1, R2)
-# = (1, 1), (2, 1), (2, 2), (4, 1), (4, 2).
-# O / S is a multiple of 8, so bfloat16 rows are whole 16-byte copies.
+# multiple of it, and every float32 pixels-per-thread pair that occurs,
+# (R1, R2) = (1, 1), (2, 1), (2, 2), (4, 1), (4, 2).
+# O / S is a multiple of 16, so bfloat16 slices are whole n16 groups of
+# the tensor cores.
 CONTRACT_SPLIT_EDGES = [
-    ((2, 6, 10, 32), 8, (1, 1, 1, 32)),     # S = 1, 1x1 tiles, 3 x 5 grid
+    ((2, 6, 10, 32), 16, (1, 1, 1, 32)),    # S = 1, 1x1 tiles, 3 x 5 grid
     ((1, 10, 14, 64), 32, (2, 2, 2, 32)),   # S = 2, ragged 5 x 7 grid
-    ((1, 12, 12, 40), 32, (4, 4, 4, 64)),   # S = 4, 4C = 2.5 chunks
-    ((2, 14, 6, 56), 64, (2, 1, 8, 64)),    # S = 8, 4C = 3.5 chunks
-    ((1, 8, 8, 8), 16, (1, 2, 2, 64)),      # 4C below one chunk
+    ((1, 12, 12, 40), 64, (4, 4, 4, 64)),   # S = 4, 4C = 2.5 chunks
+    ((2, 14, 6, 56), 128, (2, 1, 8, 64)),   # S = 8, 4C = 3.5 chunks
+    ((1, 8, 8, 8), 32, (1, 2, 2, 64)),      # 4C below one chunk
     ((1, 16, 16, 64), 64, (4, 4, 1, 32)),   # R1 = 2, R2 = 1, full tiles
     ((1, 14, 18, 32), 64, (5, 7, 2, 32)),   # R1 = R2 = 2, 5 x 7 tiles
     ((1, 18, 18, 64), 64, (8, 8, 2, 64)),   # R1 = 4, R2 = 2, ragged 9 x 9
     ((1, 8, 36, 32), 64, (1, 16, 1, 32)),   # R1 = 4, R2 = 1, 1 x 16 tiles
     ((1, 6, 6, 1024), 128, (1, 1, 8, 64)),  # 1x1 tiles, deep C
     ((1, 8, 8, 64), 256, (2, 2, 16, 64)),   # S = 16
+]
+# Forced bfloat16 plans of the tensor-core path (the float32 kernel has
+# no instance for most): every units-per-warp pair (U1, U2) the launch
+# has; 16 x 16 tiles, one of them ragged (a 17 x 17 y2 grid) with the
+# halo's 289 pixels padded to 19 m16 tiles; tiles no power of two; a
+# halo padded from 9 pixels to 16; phase 2's K = 4 O in 16 chunks across
+# taps (O = 256 at S = 1).
+CONTRACT_TC_EDGES = [
+    ((1, 4, 6, 16), 16, (2, 2, 1, 32)),       # (1, 1), M 9 -> 16
+    ((1, 18, 18, 32), 32, (8, 8, 1, 32)),     # (2, 1), ragged 9 x 9
+    ((1, 12, 12, 64), 256, (2, 4, 1, 64)),    # (2, 2), K2 in 16 chunks
+    ((1, 4, 34, 32), 128, (1, 16, 1, 32)),    # (4, 1), ragged 2 x 17
+    ((2, 32, 32, 16), 16, (16, 16, 1, 64)),   # (4, 2), one tile
+    ((1, 20, 28, 32), 32, (10, 14, 1, 32)),   # (4, 4), one tile
+    ((1, 4, 34, 64), 256, (1, 16, 1, 32)),    # (8, 2)
+    ((1, 34, 34, 32), 32, (16, 16, 1, 32)),   # (8, 4), ragged 17 x 17
+    ((1, 24, 24, 40), 64, (12, 12, 1, 32)),   # (8, 8), 4C = 5 chunks
 ]
 
 # Each op's split planner: its measured plans, 16-byte rule, cluster
@@ -916,30 +942,35 @@ def sweep_shapes(recipes=None):
     return list(dict.fromkeys(out))
 
 
-def split_sweep(out_dir, shapes=None):
+def split_sweep(out_dir, shapes=None, dtypes=(torch.float32, torch.bfloat16)):
     """Every split plan of both ops at every flagship shape (bs 1 and 4)
-    and every recipe shape (or at `shapes`, sweep_shapes' tuples),
-    float32 and bfloat16: checked against the plain version and the
-    tiled kernel, and timed; the tiled route timed beside it. A launch
-    the card refuses is recorded as such."""
+    and every recipe shape (or at `shapes`, sweep_shapes' tuples), in
+    `dtypes`: checked against the plain version and the tiled kernel,
+    and timed; the tiled route timed beside it. A launch the card
+    refuses is recorded as such."""
     os.makedirs(out_dir, exist_ok=True)
     ok = True
     with open(os.path.join(out_dir, "split_sweep.jsonl"), "w") as fh:
         for i, (kind, n, c, o, h) in enumerate(shapes or sweep_shapes()):
             ref = fs.contract_stage_ref if kind == "contract_stage" \
                 else fs.expand_stage_ref
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in dtypes:
                 item = 4 if dtype == torch.float32 else 2
                 plans = SPLIT_API[kind].candidates(n, h, h, c, o, item)
                 if not plans:
                     continue
                 args = random_stage(n, h, h, c, o, dtype, 60 + i)
+                # bf16 contract plans are timed as the training forward
+                # calls them, y1 written too (the tensor cores leave the
+                # stores a larger share of the time); the rest as
+                # inference calls them.
+                y1_out = kind == "contract_stage" and dtype == torch.bfloat16
                 with torch.no_grad():
                     y2p, y1p = ref(*args, 0.3)
                     tiled = _tiled_plan(kind, args[0], o)
                     y2t, y1t = fs._launch(kind, *args, 0.3, True, plan=tiled)
                     t_ms = time_ms(lambda: fs._launch(
-                        kind, *args, 0.3, False, plan=tiled), 10, 3)
+                        kind, *args, 0.3, y1_out, plan=tiled), 10, 3)
                     scale = max(1.0, float(y2p.float().abs().max()))
                     rows = []
                     for sp in plans:
@@ -957,12 +988,20 @@ def split_sweep(out_dir, shapes=None):
                                         .abs().max()),
                                   float((y1k.float() - y1p.float())
                                         .abs().max()))
+                        # float32 bit-equal to the tiled kernel; the
+                        # bf16 contract kernel within K2_TOL of it.
+                        eq = bool(torch.equal(y2k, y2t)
+                                  and torch.equal(y1k, y1t))
+                        tc = kind == "contract_stage" and item == 2
+                        rel = (max(_max_rel(y2k, y2t), _max_rel(y1k, y1t))
+                               if tc else None)
                         r.update(ms=time_ms(lambda: fs._launch(
-                            kind, *args, 0.3, False, split=sp), 10, 3),
-                            equal_to_tiled=bool(torch.equal(y2k, y2t)
-                                                and torch.equal(y1k, y1t)),
+                            kind, *args, 0.3, y1_out, split=sp), 10, 3),
+                            equal_to_tiled=eq, rel_err_to_tiled=rel,
                             max_abs_err=err,
-                            ok=err <= KERNEL_TOL[dtype] * scale)
+                            ok=err <= KERNEL_TOL[dtype] * scale
+                            and (rel <= K2_TOL if tc
+                                 else eq or item == 2))
                         ok &= r["ok"]
                         rows.append(r)
                         fh.write(json.dumps(r) + "\n")
@@ -1584,6 +1623,230 @@ def bwd_steps_phase(seconds=3, seed=2 ** 31 + 7):
              end_to_end={k: line.get(k) for k in (
                  "train_texels_per_s", "setup_s")},
              checks=line.get("checks"), ok=cell_ok)
+        ok &= cell_ok
+        del run
+        torch.cuda.empty_cache()
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# K2 in bfloat16 on the tensor cores (--k2)
+# ---------------------------------------------------------------------------
+
+# The bf16 split contract kernel against the tiled kernel and against the
+# plain version in float32 (on the same bf16 inputs), as a fraction of
+# each output's (y1's, y2's) largest entry: all three form the same
+# float32 products (a bf16 x bf16 product is exact) and sum them in other
+# orders; the kernels round y1 and y2 once each, where two sums a few ulps
+# apart can round one bf16 step apart (2^-8 of an entry), and phase 2
+# reads the rounded y1 where the float32 version keeps it whole: 2^-7,
+# the stage backward's bf16 bar.
+K2_TOL = 2.0 ** -7
+# Stages whose per-phase clocks --k2 reads: the 1024^2 cell's two 1024^2
+# and two 512^2 contract stages, (n, C, O, input H = W).
+K2_CLOCKED = ((4, 16, 16, 1024), (4, 32, 16, 1024), (4, 16, 32, 512),
+              (4, 32, 32, 512))
+
+
+def k2_sets():
+    """{set: [(n, C, O, input H = W)]}: the contract stages of a training
+    step in the three training cells (bs 4)."""
+    sets = {"specular": [(4, c, o, h) for k, c, o, h in FLAGSHIP_STAGES
+                         if k == "contract_stage"]}
+    for name, label in (("dragon_sss.ini", "sss"),
+                        ("dragon_sss.ini@uv1024", "sss_uv1024")):
+        n, _, stages = RECIPE_STAGES[name]
+        sets[label] = [(n, c, o, h) for k, c, o, h in stages
+                       if k == "contract_stage"]
+    return sets
+
+
+def load_tree(root):
+    """Another checkout's split contract kernel, beside this one's: its
+    csrc/contract_split.cu built under its own nlt_tpu_torch/_build and
+    its measured plans (_CONTRACT_SPLIT_TUNED, read from its
+    ops/fused_stage.py). Returns launch(args, slope) -> (y2, y1) on that
+    tree's route (None where it has no plan) and plan(key)."""
+    import ast
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "nlt_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "nlt_other_build", os.path.join(pkg, "ops", "_build.py"))
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    lib = build.load("contract_split")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nlt_contract_split.argtypes = [p] * 7 + [i] * 9 + [ctypes.c_float,
+                                                           i, p]
+    with open(os.path.join(pkg, "ops", "fused_stage.py")) as f:
+        tree = ast.parse(f.read())
+    table = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and getattr(node.targets[0], "id", "")
+                 == "_CONTRACT_SPLIT_TUNED")
+
+    def plan(key):
+        return table.get(tuple(key))
+
+    def launch(args, slope):
+        x, w1 = args[0], args[1]
+        n, h, w, c = x.shape
+        o = w1.shape[3]
+        split = plan((n, h, w, c, o, x.element_size()))
+        if split is None:
+            return None
+        y2 = torch.empty((n, h // 2, w // 2, o), dtype=x.dtype,
+                         device=x.device)
+        y1 = torch.empty_like(y2)
+        err = lib.nlt_contract_split(
+            *[t.data_ptr() for t in args], y2.data_ptr(), y1.data_ptr(),
+            n, h, w, c, o, *split, float(slope),
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError("the other tree's split launch failed: %d"
+                               % err)
+        return y2, y1
+
+    return types.SimpleNamespace(plan=plan, launch=launch)
+
+
+def _max_rel(got, want):
+    """max |got - want| over max |want|, in float32."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def check_k2(label, shape, o, seed, old=None, timing=False, split=None):
+    """The routed contract stage (or the split plan `split`) in bf16 on an
+    input of `shape` (n, h, w, c) against the tiled kernel and the plain
+    float32 version, within K2_TOL of each output's largest entry; two
+    calls the same bits; with `old` (load_tree), that tree's launch
+    timed beside."""
+    n, h, w, c = shape
+    args = random_stage(n, h, w, c, o, torch.bfloat16, seed)
+    x = args[0]
+    plan = split or fs._contract_route(x, args[1], args[3], c, o)
+    tiled = _tiled_plan("contract_stage", x, o)
+    with torch.no_grad():
+        y2, y1 = fs._launch("contract_stage", *args, 0.3, True, split=plan)
+        y2b, y1b = fs._launch("contract_stage", *args, 0.3, True, split=plan)
+        y2t, y1t = fs._launch("contract_stage", *args, 0.3, True, plan=tiled)
+        y2p, y1p = fs.contract_stage_ref(*(a.float() for a in args), 0.3)
+        torch.cuda.synchronize()
+    err = {"y2_vs_tiled": _max_rel(y2, y2t), "y1_vs_tiled": _max_rel(y1, y1t),
+           "y2_vs_f32": _max_rel(y2, y2p), "y1_vs_f32": _max_rel(y1, y1p)}
+    same = bool(torch.equal(y2, y2b) and torch.equal(y1, y1b))
+    finite = bool(torch.isfinite(y2).all() and torch.isfinite(y1).all())
+    ok = same and finite and max(err.values()) <= K2_TOL
+    rec = {"check": "k2_bf16", "set": label, "x": list(shape), "o": o,
+           "plan": plan and list(plan), "rel_err": err, "tol": K2_TOL,
+           "same_bits": same, "ok": ok}
+    del y2b, y1b, y2t, y1t, y2p, y1p
+    if timing:
+        rec["ms"] = time_ms(lambda: fs._launch(
+            "contract_stage", *args, 0.3, True, split=plan), 10, 3)
+        rec["tiled_ms"] = time_ms(lambda: fs._launch(
+            "contract_stage", *args, 0.3, True, plan=tiled), 10, 3)
+        if old is not None:
+            rec["old_plan"] = old.plan((n, h, w, c, o, 2))
+            rec["old_ms"] = (time_ms(lambda: old.launch(args, 0.3), 10, 3)
+                             if rec["old_plan"] else rec["tiled_ms"])
+        rec["bound_ms"], rec["bound_by"] = stage_bound_ms(
+            "contract_stage", x, o)
+        if (n, c, o, h) in K2_CLOCKED and label == "sss_uv1024":
+            rec["clocks"] = split_clocks("contract_stage", args, plan)
+    emit(**rec)
+    return rec
+
+
+def k2_phase(old_root=None):
+    """K2's bf16 launches: every training cell's contract stages checked
+    (check_k2) and timed beside the tiled kernel, the bound and, with
+    `old_root`, that tree's kernel (the table); the per-phase clocks of
+    K2_CLOCKED; every other bf16 key of the split table and the forced
+    edge plans checked; every float32 key bit-equal to the tiled kernel
+    and, with `old_root`, to that tree's output. Returns ok."""
+    old = load_tree(old_root) if old_root else None
+    recs, table = [], {}
+    for label, shapes in k2_sets().items():
+        tot = table.setdefault(label, {"ms": 0.0, "tiled_ms": 0.0,
+                                       "bound_ms": 0.0, "stages": 0})
+        if old is not None:
+            tot["old_ms"] = tot.get("old_ms", 0.0)
+        for i, (n, c, o, h) in enumerate(shapes):
+            r = check_k2(label, (n, h, h, c), o, 700 + i, old, timing=True)
+            recs.append(r)
+            for k in tot:
+                tot[k] += 1 if k == "stages" else r[k]
+        torch.cuda.empty_cache()
+    done = {(n, h, h, c, o, 2) for shapes in k2_sets().values()
+            for n, c, o, h in shapes}
+    for i, key in enumerate(sorted(fs._CONTRACT_SPLIT_TUNED)):
+        n, h, _, c, o, item = key
+        if item == 2 and key not in done:
+            recs.append(check_k2("table", key[:4], o, 800 + i))
+    for i, (shape, o, split) in enumerate(CONTRACT_SPLIT_EDGES
+                                          + CONTRACT_TC_EDGES):
+        recs.append(check_k2("edge", shape, o, 900 + i, split=split))
+    # float32: the split kernel bit-equal to the tiled kernel (and to the
+    # other tree's split kernel) at every float32 key.
+    f32 = []
+    for i, key in enumerate(sorted(fs._CONTRACT_SPLIT_TUNED)):
+        n, h, w, c, o, item = key
+        if item != 4:
+            continue
+        args = random_stage(n, h, w, c, o, torch.float32, 950 + i)
+        with torch.no_grad():
+            got = fs._launch("contract_stage", *args, 0.3, True)
+            tiled = fs._launch("contract_stage", *args, 0.3, True,
+                               plan=_tiled_plan("contract_stage", args[0], o))
+            eq = all(torch.equal(a, b) for a, b in zip(got, tiled))
+            other = old and old.launch(args, 0.3)
+            if other is not None:
+                eq = eq and all(torch.equal(a, b) for a, b in zip(got, other))
+        f32.append({"key": list(key), "ok": bool(eq)})
+        del args, got, tiled
+    torch.cuda.empty_cache()
+    f32_ok = all(r["ok"] for r in f32)
+    emit(check="k2_f32_bit_equal", keys=len(f32), against_old=old is not None,
+         unequal=[r["key"] for r in f32 if not r["ok"]], ok=f32_ok)
+    worst = max(max(r["rel_err"].values()) for r in recs)
+    ok = all(r["ok"] for r in recs) and f32_ok
+    emit(phase="k2_table", totals_ms=table, checked=len(recs),
+         worst_rel_err=worst, tol=K2_TOL, ok=ok)
+    return ok
+
+
+def k2_cells_phase(seconds=3, seed=2 ** 31 + 11):
+    """Every cell of BENCHMARK.json run briefly in this process:
+    TC_LAUNCHES per step equals the contract launches of a training step
+    (12 / 16 / 16) and is 0 in the serving cells (their stages run in
+    float32), and each cell stays correct. Returns ok."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import run as bench_run
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    want = {"dragon_specular.train": 12, "dragon_sss.train": 16,
+            "dragon_sss_uv1024.train": 16}
+    ok = True
+    for cell in [w["name"] for w in bench["workloads"]]:
+        _reset_launches()
+        line, run = bench_run.run_cell(bench, cell, seed, seconds, False)
+        steps = run.attempted
+        tc = fs.TC_LAUNCHES["contract_stage"]
+        nc = want.get(cell, 0)
+        cell_ok = (bool(line.get("correct")) and tc == nc * steps
+                   and fs.LAUNCHES["contract_stage"] > 0)
+        emit(phase="k2_cells", cell=cell, units=steps,
+             tc_launches=tc, tc_per_unit=tc / max(steps, 1),
+             launches=dict(fs.LAUNCHES), correct=line.get("correct"),
+             end_to_end={k: line["metrics"][k]["value"]
+                         for k in line.get("metrics", {})},
+             ok=cell_ok)
         ok &= cell_ok
         del run
         torch.cuda.empty_cache()
@@ -5416,6 +5679,10 @@ def main(argv=None):
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--sweep-recipe", action="append", default=None,
                     choices=sorted(RECIPE_STAGES))
+    ap.add_argument("--sweep-kind", default=None,
+                    choices=("contract_stage", "expand_stage"))
+    ap.add_argument("--sweep-dtype", default=None,
+                    choices=("float32", "bfloat16"))
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "chiprun_out"))
     # One rank of phase 10 (started by the script itself).
@@ -5430,6 +5697,12 @@ def main(argv=None):
     # steps (--bwd), or the checks alone (--bwd-quick).
     ap.add_argument("--bwd", action="store_true")
     ap.add_argument("--bwd-quick", action="store_true")
+    # K2's bf16 launches alone: checks, the per-stage table and clocks,
+    # and the cells' TC_LAUNCHES (--k2); --k2-old ROOT times that
+    # checkout's kernel beside this one's and holds float32 to its bits.
+    ap.add_argument("--k2", action="store_true")
+    ap.add_argument("--k2-quick", action="store_true")
+    ap.add_argument("--k2-old", default=None)
     for name in ("--backend", "--result", "--dtype", "--ckpt"):
         ap.add_argument(name, default=None)
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -5471,8 +5744,22 @@ def main(argv=None):
     emit(phase="build", sources=sources,
          seconds=time.perf_counter() - t0, ptxas=ptxas)
     if args.sweep:
-        ok = split_sweep(args.out, sweep_shapes(args.sweep_recipe))
+        shapes = [sh for sh in sweep_shapes(args.sweep_recipe)
+                  if args.sweep_kind in (None, sh[0])]
+        dtypes = ((getattr(torch, args.sweep_dtype),) if args.sweep_dtype
+                  else (torch.float32, torch.bfloat16))
+        ok = split_sweep(args.out, shapes, dtypes)
         emit(phase="split_sweep_all", ok=bool(ok))
+        return 0 if ok else 1
+    if args.k2 or args.k2_quick:
+        t0 = time.perf_counter()
+        ok = k2_phase(args.k2_old)
+        if not args.k2_quick:
+            ok &= k2_cells_phase()
+        emit(phase="k2_all", seconds=time.perf_counter() - t0, ok=bool(ok))
+        if not ok:
+            print("chip_smoke: FAILED (%s)" % ", ".join(
+                dict.fromkeys(map(str, FAILED))), file=sys.stderr)
         return 0 if ok else 1
     if args.bwd or args.bwd_quick:
         t0 = time.perf_counter()

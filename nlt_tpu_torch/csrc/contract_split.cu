@@ -9,11 +9,18 @@
 //   y2 = lrelu(conv_k2s1_SAME(y1) + b2)   taps look down-right, zero past
 //                                         the bottom/right edge
 // Activations NHWC, kernels HWIO, float32 or bfloat16. Products accumulate
-// in float32 with FMA, in the order of csrc/fused_stage.cu's
-// contract_kernel (phase 1: w1's rows (di, dj, c) ascending; phase 2: the
-// taps, then channels), the bias (already in the activation type) is added
-// in float32, and y1 and y2 are rounded to the activation type once each,
-// after the activation. So the two routes agree bit for bit.
+// in float32, the bias (already in the activation type) is added in
+// float32, and y1 and y2 are rounded to the activation type once each,
+// after the activation.
+//  - float32: FMA on the CUDA cores, in the order of csrc/fused_stage.cu's
+//    contract_kernel (phase 1: w1's rows (di, dj, c) ascending; phase 2:
+//    the taps, then channels), so the two routes agree bit for bit.
+//  - bfloat16: the products on the tensor cores (mma.sync m16n8k16, bf16
+//    operands, float32 accumulators). A bf16 x bf16 product is exact in
+//    float32 and y1 is rounded to bf16 before phase 2 reads it, as on the
+//    tiled route, so the two routes form the same products and differ in
+//    the order of the float32 sums alone (within 2^-7 of each output's
+//    largest entry; chip_smoke.py checks it).
 //
 // What bounds it on the H100. The deep stages of the flagship U-Net
 // (16^2 x 512 -> 256, 32^2 x 256 -> 256, 64^2 x 128 -> 128 at bs 1) do
@@ -43,11 +50,23 @@
 //  - Phase 2 (k2s1 conv) per rank over its y2 channel slice, from the
 //    full y1 tile, with w2's slice streamed through the same ring (its
 //    first chunks are in flight during the exchange).
-// Each thread owns R pixels x 4 channels of the current product (R is 1,
-// 2 or 4, the least that lets 256 threads cover the full tile) and takes
-// four input channels a step. A halo pixel costs a full 4C reduction, so
-// the tile size trades clusters against recomputation (ops/
-// fused_stage.py::_contract_split_plan routes the measured plans).
+// In float32 each thread owns R pixels x 4 channels of the current
+// product (R is 1, 2 or 4, the least that lets 256 threads cover the full
+// tile) and takes four input channels a step. In bfloat16 each of the
+// eight warps owns U units of m16 x n16 outputs (U is 1, 2, 4 or 8, the
+// least that covers the tile): phase 1's M is the y1 tile's computed
+// pixels padded to 16 (a padding row reads the last computed pixel and
+// is not written), N the rank's O/S channels, K = 4C over the ring's x
+// chunks; phase 2's M is the y2 tile's pixels and K = 4 O, w2's rows
+// (tap, channel) in order, chunked across taps (the flagship's O = 16
+// stages take all four taps in one chunk), each k16 step reading the y1
+// tile at its tap's offset. ldmatrix feeds both operands:
+// x and y1 rows (pixels, channels contiguous) as A, the weight rows
+// (.trans: rows run along K) as B; weight rows in the ring carry one
+// 16-byte pad so that eight rows fall on distinct banks. A halo pixel
+// costs a full 4C reduction, so the tile size trades clusters against
+// recomputation (ops/fused_stage.py::_contract_split_plan routes the
+// measured plans).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -55,6 +74,8 @@
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "split_common.cuh"
 
@@ -71,30 +92,41 @@ constexpr int kMaxS = 16;  // non-portable cluster size, where allowed
 // mirrors it.
 struct Geo {
   int th, tw, o, s, ch, item;
+  bool tc;   // bfloat16: the products on the tensor cores
   int os;    // O / S: the rank's channel slice
   int ve;    // elements per 16-byte copy
   int twp;   // y1 tile width TW + 1
   int m1;    // y1 tile pixels with the halo: (TH+1)(TW+1)
   int ldx;   // x chunk row stride: CH + one 16-byte pad
   int ys;    // y1 tile pixel stride: O + one 16-byte pad
-  int ch2;   // w2 rows per phase-2 chunk: what a ring buffer holds
+  int lw;    // weight row stride in the ring: O/S, + one 16-byte pad (tc)
+  int ch2;   // w2 rows per phase-2 chunk: what a ring buffer holds; on
+             // the tensor cores whole k16 steps of the four taps' 4 O
+             // rows (HWIO: tap-major), else of one tap's O
   size_t stage_elems, stage_bytes, y1_bytes, smem;
+  // tc: b1's and b2's slices as float32, after the pixel offsets
+  size_t bias_off;
 
   __host__ __device__ Geo(int th_, int tw_, int o_, int s_, int ch_,
                           int item_)
       : th(th_), tw(tw_), o(o_), s(s_), ch(ch_), item(item_) {
+    tc = item == 2;
     os = o / s;
     ve = 16 / item;
     twp = tw + 1;
     m1 = (th + 1) * twp;
     ldx = ch + ve;
     ys = o + ve;
-    stage_elems = (size_t)m1 * ldx + (size_t)ch * os;
-    const int rows = (int)(stage_elems / os) & ~3;
-    ch2 = o < rows ? o : rows;
+    lw = tc ? os + ve : os;
+    stage_elems = (size_t)m1 * ldx + (size_t)ch * lw;
+    const int rows = (int)(stage_elems / lw) & (tc ? ~15 : ~3);
+    const int k2 = tc ? 4 * o : o;
+    ch2 = k2 < rows ? k2 : rows;
     stage_bytes = stage_elems * item;
     y1_bytes = ((size_t)m1 * ys * item + 15) / 16 * 16;
-    smem = kStages * stage_bytes + y1_bytes + ((size_t)m1 * 4 + 15) / 16 * 16;
+    bias_off = kStages * stage_bytes + y1_bytes +
+               ((size_t)m1 * 4 + 15) / 16 * 16;
+    smem = bias_off + (tc ? (size_t)8 * os : 0);
   }
   __host__ __device__ int items1(int r) const {
     return (m1 + r - 1) / r * (os / 4);
@@ -102,17 +134,33 @@ struct Geo {
   __host__ __device__ int items2(int r) const {
     return (th * tw + r - 1) / r * (os / 4);
   }
+  // tc: m16 x n16 units of each product, over the full tile.
+  __host__ __device__ int units1() const { return (m1 + 15) / 16 * (os / 16); }
+  __host__ __device__ int units2() const {
+    return (th * tw + 15) / 16 * (os / 16);
+  }
 };
 
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxU = 8;  // m16 x n16 units per warp (tc)
+
+// Resident blocks an SM is asked to hold (registers per thread up to
+// 65536 / (256 n)): bf16 blocks are short and latency-bound, so the thin
+// stages want four; the float32 instances keep the compiler's choice.
+template <typename T, int A1>
+constexpr int min_blocks() {
+  return std::is_same<T, __nv_bfloat16>::value ? (A1 <= 2 ? 4 : A1 <= 4 ? 3 : 2)
+                                               : 1;
+}
+
+// The products on the CUDA cores (FMA): the float32 instances.
 template <typename T, int R1, int R2>
-__global__ void __launch_bounds__(kThreads)
-    contract_split_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                          const T* __restrict__ b1, const T* __restrict__ w2,
-                          const T* __restrict__ b2, T* __restrict__ y2,
-                          T* __restrict__ y1, int H, int W, int C, int O,
-                          int TH, int TW, int S, int CH, float slope,
-                          long long* __restrict__ clk) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__device__ __forceinline__ void contract_fma(
+    unsigned char* smem, const T* __restrict__ x, const T* __restrict__ w1,
+    const T* __restrict__ b1, const T* __restrict__ w2,
+    const T* __restrict__ b2, T* __restrict__ y2, T* __restrict__ y1, int H,
+    int W, int C, int O, int TH, int TW, int S, int CH, float slope,
+    long long* __restrict__ clk) {
   cg::cluster_group cluster = cg::this_cluster();
   const Geo g(TH, TW, O, S, CH, (int)sizeof(T));
   T* ring = reinterpret_cast<T*>(smem);
@@ -391,21 +439,354 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The least R in {1, 2, 4} whose items fit the block, or 0. Phase 1's
-// tile holds more pixels than phase 2's, so R2 <= R1; the launch has an
-// instance for every pair a tile of powers of two gives.
+// The products on the tensor cores: the bfloat16 instances, U1 / U2
+// m16 x n16 units per warp in phase 1 / phase 2. The loader, the ring,
+// the y1 tile, the exchange and the clocks are contract_fma's.
+template <int U1, int U2>
+__device__ __forceinline__ void contract_tc(
+    unsigned char* smem, const __nv_bfloat16* __restrict__ x,
+    const __nv_bfloat16* __restrict__ w1,
+    const __nv_bfloat16* __restrict__ b1,
+    const __nv_bfloat16* __restrict__ w2,
+    const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ y2,
+    __nv_bfloat16* __restrict__ y1, int H, int W, int C, int O, int TH,
+    int TW, int S, int CH, float slope, long long* __restrict__ clk) {
+  using T = __nv_bfloat16;
+  cg::cluster_group cluster = cg::this_cluster();
+  const Geo g(TH, TW, O, S, CH, 2);
+  T* ring = reinterpret_cast<T*>(smem);
+  T* y1s = reinterpret_cast<T*>(smem + kStages * g.stage_bytes);
+  int* pix = reinterpret_cast<int*>(smem + kStages * g.stage_bytes +
+                                    g.y1_bytes);
+  float* bias = reinterpret_cast<float*>(smem + g.bias_off);
+
+  const int tid = threadIdx.x;
+  const bool timed = clk != nullptr && tid == 0;
+  long long* ck = timed ? clk + ((size_t)(blockIdx.z * gridDim.y +
+                                           blockIdx.y) * gridDim.x +
+                                 blockIdx.x) * kClockSlots
+                        : nullptr;
+  long long wait1 = 0, wait2 = 0, issue1 = 0, issue2 = 0;
+  if (timed) {
+    ck[0] = globaltimer();
+    ck[1] = clock64();
+  }
+  const int rank = (int)cluster.block_rank();
+  const int img = blockIdx.z;
+  const int H2 = H / 2, W2 = W / 2;
+  const int r0 = blockIdx.y * TH, q0 = (blockIdx.x / S) * TW;
+  const int os = g.os, c0 = rank * os;
+  const int TWp = g.twp;
+  const T* xn = x + (size_t)img * H * W * C;
+
+  const int nh1 = min(TH + 1, H2 - r0), nw1 = min(TWp, W2 - q0);
+  const int nh2 = min(TH, H2 - r0), nw2 = min(TW, W2 - q0);
+  const int nv1 = nh1 * nw1, nv2 = nh2 * nw2;
+  // The rank's bias slices, read once while the pixel offsets are made.
+  for (int i = tid; i < 2 * os; i += kThreads)
+    bias[i] = to_f32(i < os ? b1[c0 + i] : b2[c0 + i - os]);
+  for (int m = tid; m < nv1; m += kThreads) {
+    const int r = m / nw1, c = m - r * nw1;
+    pix[m] = (2 * (r0 + r) * W + 2 * (q0 + c)) * C;
+  }
+  if (nv1 < g.m1) {
+    const int vpr = O / g.ve;
+    for (int e = tid; e < g.m1 * vpr; e += kThreads) {
+      const int p = e / vpr, v = e - p * vpr;
+      const int r = p / TWp, c = p - r * TWp;
+      if (r >= nh1 || c >= nw1)
+        *reinterpret_cast<int4*>(y1s + (size_t)p * g.ys + v * g.ve) =
+            make_int4(0, 0, 0, 0);
+    }
+  }
+
+  // Lane roles. ldmatrix: lane l addresses row l % 16 of a 16 x 16 tile
+  // at column 8 (l / 16), for A (rows: pixels) and B (rows: K) alike.
+  // The accumulators: rows gq and gq + 8, columns 2 tq and 2 tq + 1 of
+  // each n8 half of a unit.
+  const int warp = tid >> 5, lane = tid & 31;
+  const int lr = lane & 15, lc = (lane >> 4) * 8;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int ng = os / 16;  // n16 groups of the rank's slice
+  // Unit u = warp + 8 j of a product: m tile u / ng, n group u % ng.
+  const int nu1 = (nv1 + 15) / 16 * ng, nu2 = (nv2 + 15) / 16 * ng;
+  int a1[U1], b1o[U1];  // this lane's A / B offset in a ring buffer
+#pragma unroll
+  for (int j = 0; j < U1; ++j) {
+    const int u = warp + kWarps * j;
+    const int m = min((u / ng) * 16 + lr, nv1 - 1);
+    a1[j] = m * g.ldx + lc;
+    b1o[j] = g.m1 * g.ldx + lr * g.lw + (u % ng) * 16 + lc;
+  }
+  __syncthreads();
+
+  const int K1 = 4 * C, K2 = 4 * O;  // K of phase 1 and of the four taps
+  const int n1 = (K1 + CH - 1) / CH;
+  const int total = n1 + (K2 + g.ch2 - 1) / g.ch2;
+  const int gx = CH / g.ve;
+  const int gwr = os / g.ve;
+  const int two_c = 2 * C, jump = W * C - two_c;
+  const int lgx = 31 - __clz(gx);
+  const int drow = kThreads / gwr, dv = kThreads - drow * gwr;
+  const int row0 = tid / gwr, v0 = tid - row0 * gwr;
+  auto load = [&](int step) {
+    T* st = ring + (size_t)(step % kStages) * g.stage_elems;
+    if (step < n1) {
+      const int k0 = step * CH;
+      for (int e = tid; e < nv1 * gx; e += kThreads) {
+        const int m = e >> lgx, k = k0 + (e & (gx - 1)) * g.ve;
+        const bool ok = k < K1;
+        cp_async16(st + m * g.ldx + (k - k0),
+                   ok ? xn + pix[m] + k + (k >= two_c ? jump : 0) : x,
+                   ok ? 16 : 0);
+      }
+      T* ws = st + g.m1 * g.ldx;
+      for (int row = row0, v = v0; row < CH;) {
+        const int k = k0 + row;
+        const bool ok = k < K1;
+        cp_async16(ws + row * g.lw + v * g.ve,
+                   ok ? w1 + ((size_t)k * O + c0 + v * g.ve) : w1,
+                   ok ? 16 : 0);
+        row += drow;
+        v += dv;
+        if (v >= gwr) {
+          v -= gwr;
+          ++row;
+        }
+      }
+    } else {
+      // w2's rows (tap, k) in order, across taps.
+      const int k0 = (step - n1) * g.ch2;
+      const int rows = K2 - k0 < g.ch2 ? K2 - k0 : g.ch2;
+      for (int row = row0, v = v0; row < rows;) {
+        cp_async16(st + row * g.lw + v * g.ve,
+                   w2 + ((size_t)(k0 + row) * O + c0 + v * g.ve), 16);
+        row += drow;
+        v += dv;
+        if (v >= gwr) {
+          v -= gwr;
+          ++row;
+        }
+      }
+    }
+  };
+  // One chunk's wait, barrier and the issue of the chunk kStages - 1
+  // ahead; returns the ring buffer of `step`.
+  auto next = [&](int step, long long& wait, long long& issue) {
+    const long long tw0 = timed ? clock64() : 0;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (timed) wait += clock64() - tw0;
+    const long long ti0 = timed ? clock64() : 0;
+    if (step + kStages - 1 < total) load(step + kStages - 1);
+    cp_async_commit();
+    if (timed) issue += clock64() - ti0;
+    return ring + (size_t)(step % kStages) * g.stage_elems;
+  };
+
+#pragma unroll
+  for (int s0 = 0; s0 < kStages - 1; ++s0) {
+    if (s0 < total) load(s0);
+    cp_async_commit();
+  }
+  if (timed) ck[2] = clock64();
+
+  // Phase 1: y1 (M: the computed pixels) = x chunks x w1 chunks.
+  {
+    float acc[U1][2][4];
+#pragma unroll
+    for (int j = 0; j < U1; ++j)
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][f][e] = 0.f;
+    for (int step = 0; step < n1; ++step) {
+      const T* st = next(step, wait1, issue1);
+      const int kc = K1 - step * CH < CH ? K1 - step * CH : CH;
+      for (int k = 0; k < kc; k += 16) {
+#pragma unroll
+        for (int j = 0; j < U1; ++j) {
+          if (warp + kWarps * j >= nu1) continue;
+          unsigned a[4], b[4];
+          ldsm4<false>(a, st + a1[j] + k);
+          ldsm4<true>(b, st + b1o[j] + k * g.lw);
+          mma16816(acc[j][0], a, b[0], b[1]);
+          mma16816(acc[j][1], a, b[2], b[3]);
+        }
+      }
+    }
+    if (timed) ck[3] = clock64();
+    // y1 of this rank's slice, rounded once, into the own y1 tile.
+#pragma unroll
+    for (int j = 0; j < U1; ++j) {
+      const int u = warp + kWarps * j;
+      if (u >= nu1) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = (u / ng) * 16 + gq + 8 * h;
+        if (m >= nv1) continue;
+        const int r = m / nw1;
+        T* dst = y1s + (r * TWp + m - r * nw1) * g.ys;
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const int n = (u % ng) * 16 + f * 8 + 2 * tq;
+          *reinterpret_cast<__nv_bfloat162*>(dst + c0 + n) =
+              __floats2bfloat162_rn(
+                  lrelu(acc[j][f][2 * h] + bias[n], slope),
+                  lrelu(acc[j][f][2 * h + 1] + bias[n + 1], slope));
+        }
+      }
+    }
+  }
+  // One block (S = 1) has no peers to wait for: a block barrier, and
+  // none after the (empty) exchange.
+  if (S > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  if (timed) ck[4] = clock64();
+  const int vpp = os / g.ve;  // 16-byte vectors per pixel slice
+  // y1 to device memory when asked: this rank's slice of the tile's own
+  // pixels (not its halo), whole 16-byte vectors.
+  if (y1 != nullptr) {
+    for (int e = tid; e < nv2 * vpp; e += kThreads) {
+      const int p = e / vpp, v = e - p * vpp;
+      const int r = p / nw2, c = p - r * nw2;
+      *reinterpret_cast<int4*>(
+          y1 + (((size_t)img * H2 + r0 + r) * W2 + q0 + c) * O + c0 +
+          v * g.ve) =
+          *reinterpret_cast<const int4*>(y1s + (r * TWp + c) * g.ys + c0 +
+                                         v * g.ve);
+    }
+  }
+  // Exchange: the peers' slices of the computed pixels into this block's
+  // y1 tile.
+  for (int e = tid; e < (S - 1) * nv1 * vpp; e += kThreads) {
+    const int pr = e / (nv1 * vpp), rest = e - pr * nv1 * vpp;
+    const int peer = pr < rank ? pr : pr + 1;
+    const int p = rest / vpp, v = rest - p * vpp;
+    const int r = p / nw1;
+    const size_t off = (size_t)(r * TWp + p - r * nw1) * g.ys + peer * os +
+                       v * g.ve;
+    const T* src = cluster.map_shared_rank(y1s, peer);
+    *reinterpret_cast<int4*>(y1s + off) =
+        *reinterpret_cast<const int4*>(src + off);
+  }
+  if (S > 1) cluster.sync();
+  if (timed) ck[5] = clock64();
+
+  // Phase 2: y2 (M: the tile's computed pixels) = the four taps' shifted
+  // y1 tile x w2 chunks. A padding row reads the first pixel.
+  int a2[U2];
+#pragma unroll
+  for (int j = 0; j < U2; ++j) {
+    const int p0 = ((warp + kWarps * j) / ng) * 16 + lr;
+    const int p = p0 < nv2 ? p0 : 0;
+    const int r = p / nw2;
+    a2[j] = (r * TWp + p - r * nw2) * g.ys + lc;
+  }
+  float acc[U2][2][4];
+#pragma unroll
+  for (int j = 0; j < U2; ++j)
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][f][e] = 0.f;
+  for (int step = n1; step < total; ++step) {
+    const T* st = next(step, wait2, issue2);
+    const int k0 = (step - n1) * g.ch2;
+    const int rows = K2 - k0 < g.ch2 ? K2 - k0 : g.ch2;
+    for (int k = 0; k < rows; k += 16) {
+      // A k16 step lies in one tap (O is a multiple of 16).
+      const int tap = (k0 + k) / O;
+      const T* ya = y1s + ((tap >> 1) * TWp + (tap & 1)) * g.ys + k0 + k -
+                    tap * O;
+#pragma unroll
+      for (int j = 0; j < U2; ++j) {
+        const int u = warp + kWarps * j;
+        if (u >= nu2) continue;
+        unsigned a[4], b[4];
+        ldsm4<false>(a, ya + a2[j]);
+        ldsm4<true>(b, st + (k + lr) * g.lw + (u % ng) * 16 + lc);
+        mma16816(acc[j][0], a, b[0], b[1]);
+        mma16816(acc[j][1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int j = 0; j < U2; ++j) {
+    const int u = warp + kWarps * j;
+    if (u >= nu2) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (u / ng) * 16 + gq + 8 * h;
+      if (p >= nv2) continue;
+      const int r = p / nw2, c = p - r * nw2;
+      T* out = y2 + (((size_t)img * H2 + r0 + r) * W2 + q0 + c) * O;
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const int n = (u % ng) * 16 + f * 8 + 2 * tq;
+        *reinterpret_cast<__nv_bfloat162*>(out + c0 + n) =
+            __floats2bfloat162_rn(
+                lrelu(acc[j][f][2 * h] + bias[os + n], slope),
+                lrelu(acc[j][f][2 * h + 1] + bias[os + n + 1], slope));
+      }
+    }
+  }
+  if (timed) {
+    ck[6] = clock64();
+    ck[7] = wait1;
+    ck[8] = wait2;
+    ck[9] = globaltimer();
+    ck[10] = issue1;
+    ck[11] = issue2;
+  }
+}
+
+// One kernel for both types (the name the profiler and the benchmark's
+// matchers read): float32 on the CUDA cores with R1 / R2 pixels per thread
+// item, bfloat16 on the tensor cores with U1 / U2 units per warp.
+template <typename T, int A1, int A2>
+__global__ void __launch_bounds__(kThreads, (min_blocks<T, A1>()))
+    contract_split_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                          const T* __restrict__ b1, const T* __restrict__ w2,
+                          const T* __restrict__ b2, T* __restrict__ y2,
+                          T* __restrict__ y1, int H, int W, int C, int O,
+                          int TH, int TW, int S, int CH, float slope,
+                          long long* __restrict__ clk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    contract_tc<A1, A2>(smem, x, w1, b1, w2, b2, y2, y1, H, W, C, O, TH, TW,
+                        S, CH, slope, clk);
+  else
+    contract_fma<T, A1, A2>(smem, x, w1, b1, w2, b2, y2, y1, H, W, C, O, TH,
+                            TW, S, CH, slope, clk);
+}
+
+// float32: the least R in {1, 2, 4} whose items fit the block, or 0.
+// Phase 1's tile holds more pixels than phase 2's, so R2 <= R1; the
+// launch has an instance for every pair a tile of powers of two gives.
+// bfloat16 (tc): the least U in {1, 2, 4, 8} whose units fit the eight
+// warps, or 0; likewise U2 <= U1.
 int pick_r(const Geo& g, bool phase1) {
+  if (g.tc) {
+    for (int u = 1; u <= kMaxU; u *= 2)
+      if ((phase1 ? g.units1() : g.units2()) <= kWarps * u) return u;
+    return 0;
+  }
   for (int r = 1; r <= kMaxR; r *= 2)
     if ((phase1 ? g.items1(r) : g.items2(r)) <= kThreads) return r;
   return 0;
 }
 
-template <typename T, int R1, int R2>
+template <typename T, int A1, int A2>
 cudaError_t launch_r(const Geo& g, const void* x, const void* w1,
                      const void* b1, const void* w2, const void* b2, void* y2,
                      void* y1, int n, int h, int w, int c, float slope,
                      long long* clk, cudaStream_t stream) {
-  auto kern = contract_split_kernel<T, R1, R2>;
+  auto kern = contract_split_kernel<T, A1, A2>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
   if (err != cudaSuccess) return err;
@@ -444,32 +825,59 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
   const Geo g(th, tw, o, s, ch, (int)sizeof(T));
   // Every copy is 16 bytes: rows of x (C), of the channel slice (O/S) and
   // chunks (CH) must be whole 16-byte vectors, the slice whole float4
-  // groups of channels, and one weight row at most one copy per thread.
+  // groups of channels (n16 groups on the tensor cores), and one weight
+  // row at most one copy per thread.
   if (th < 1 || tw < 1 || h < 2 || w < 2 || h % 2 || w % 2 || s < 1 ||
       s > kMaxS || (s & (s - 1)) != 0 || o % s != 0 || g.os % g.ve != 0 ||
-      g.os % 4 != 0 || g.os / g.ve > kThreads || c % g.ve != 0 ||
-      ch < g.ve || (ch & (ch - 1)) != 0 || !aligned16(x) || !aligned16(w1) ||
-      !aligned16(w2))
+      g.os % (g.tc ? 16 : 4) != 0 || g.os / g.ve > kThreads ||
+      c % g.ve != 0 || ch < g.ve || (ch & (ch - 1)) != 0 || !aligned16(x) ||
+      !aligned16(w1) || !aligned16(w2))
     return cudaErrorInvalidValue;
-  const int r1 = pick_r(g, true), r2 = pick_r(g, false);
+  const int a1 = pick_r(g, true), a2 = pick_r(g, false);
   auto go = [&](auto fn) {
     return fn(g, x, w1, b1, w2, b2, y2, y1, n, h, w, c, slope, clk, stream);
   };
-  switch (r1 * 8 + r2) {
-    case 1 * 8 + 1:
-      return go(&launch_r<T, 1, 1>);
-    case 2 * 8 + 1:
-      return go(&launch_r<T, 2, 1>);
-    case 2 * 8 + 2:
-      return go(&launch_r<T, 2, 2>);
-    case 4 * 8 + 1:
-      return go(&launch_r<T, 4, 1>);
-    case 4 * 8 + 2:
-      return go(&launch_r<T, 4, 2>);
-    default:  // R = 0: the product does not fit the block's threads; R2
-              // = 4 needs a tile that is no power of two (6 x 6 at O/S =
-              // 64), which no plan uses
-      return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    switch (a1 * 16 + a2) {
+      case 1 * 16 + 1:
+        return go(&launch_r<T, 1, 1>);
+      case 2 * 16 + 1:
+        return go(&launch_r<T, 2, 1>);
+      case 2 * 16 + 2:
+        return go(&launch_r<T, 2, 2>);
+      case 4 * 16 + 1:
+        return go(&launch_r<T, 4, 1>);
+      case 4 * 16 + 2:
+        return go(&launch_r<T, 4, 2>);
+      case 4 * 16 + 4:
+        return go(&launch_r<T, 4, 4>);
+      case 8 * 16 + 2:
+        return go(&launch_r<T, 8, 2>);
+      case 8 * 16 + 4:
+        return go(&launch_r<T, 8, 4>);
+      case 8 * 16 + 8:
+        return go(&launch_r<T, 8, 8>);
+      default:  // U = 0: more units than the warps hold; (8, 1) needs a
+                // tile whose halo has over four times its m16 tiles
+        return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (a1 * 8 + a2) {
+      case 1 * 8 + 1:
+        return go(&launch_r<T, 1, 1>);
+      case 2 * 8 + 1:
+        return go(&launch_r<T, 2, 1>);
+      case 2 * 8 + 2:
+        return go(&launch_r<T, 2, 2>);
+      case 4 * 8 + 1:
+        return go(&launch_r<T, 4, 1>);
+      case 4 * 8 + 2:
+        return go(&launch_r<T, 4, 2>);
+      default:  // R = 0: the product does not fit the block's threads; R2
+                // = 4 needs a tile that is no power of two (6 x 6 at O/S =
+                // 64), which no plan uses
+        return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -516,7 +924,8 @@ long long nlt_contract_split_smem_bytes(int th, int tw, int o, int s, int ch,
 }
 
 // Pixels per thread item of the launch's two products (R1, R2; 0 = does
-// not fit 256 threads), as the launch picks them.
+// not fit 256 threads) in float32, m16 x n16 units per warp (U1, U2; 0 =
+// does not fit 8 warps) in bfloat16, as the launch picks them.
 int nlt_contract_split_items(int th, int tw, int o, int s, int ch,
                              int itemsize, int phase) {
   const Geo g(th, tw, o, s, ch, itemsize);

@@ -1,7 +1,8 @@
 // Device pieces shared by the split stage kernels (csrc/expand_split.cu,
 // csrc/contract_split.cu): the block size, the cp.async ring depth, the
 // per-phase clock slots, bf16/f32 conversions, four-channel loads and
-// multiply-adds, and the 16-byte cp.async copy. ops/_build.py hashes
+// multiply-adds, the 16-byte cp.async copy, and ldmatrix / mma.sync for
+// the bf16 products on the tensor cores. ops/_build.py hashes
 // this header into both libraries' names, so an edit rebuilds both.
 
 #pragma once
@@ -92,5 +93,32 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Tensor-core pieces of the bf16 products. ldsm4 loads four 8 x 8 bf16
+// matrices, lane l giving the row address of row l % 8 of matrix l / 8
+// (.trans: each matrix transposed on the way, for an operand whose rows
+// run along K); mma16816 is acc += A (16 x 16) B (16 x 8) in float32.
+template <bool kTrans>
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 }  // namespace nlt_split

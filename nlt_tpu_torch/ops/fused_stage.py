@@ -46,8 +46,10 @@ above it (bound by operations); the deep stages do so little work that
 latency bounds them. The design keeps the intermediate y1 in
 shared memory (the one thing the fusion is for: y1 never goes to
 device memory unless asked) and streams the input channels in chunks,
-so no stage's width is limited by shared memory. Products run on the
-CUDA cores in float32.
+so no stage's width is limited by shared memory. Products accumulate
+in float32: on the CUDA cores, except the split contract kernel's
+bfloat16 launches, which run them on the tensor cores (mma.sync,
+bf16 operands; ``TC_LAUNCHES`` counts them).
 
 On a CPU tensor each op runs its plain PyTorch version
 (``contract_stage_ref`` / ``expand_stage_ref``, straight ports of the
@@ -85,8 +87,12 @@ Numerics follow the Pallas kernels: float32 accumulation, the bias
 added in float32, y1 and y2 rounded to the activation dtype once each
 after the activation. The plain versions follow nlt_tpu's references,
 which under bfloat16 round every tap's product before the sum; the two
-agree exactly in float32 up to summation order. The two routes of
-each op sum in one order, so they agree bit for bit.
+agree exactly in float32 up to summation order. In float32 the two
+routes of each op sum in one order, so they agree bit for bit; so do
+expand's in bfloat16. The bfloat16 split contract kernel forms the same
+exact products on the tensor cores and sums them in another order, so
+it agrees with the tiled kernel up to float32 summation order (within
+2^-7 of each output's largest entry on the card, chip_smoke.py).
 """
 
 import ctypes
@@ -110,6 +116,9 @@ ROUTES = {kind: graph.launch_counter({"split": 0, "tiled": 0})
           for kind in LAUNCHES}
 # Stage backwards that ran the kernels of csrc/stage_bwd.cu, per op.
 BWD_LAUNCHES = graph.launch_counter({"contract_stage": 0, "expand_stage": 0})
+# Forward launches whose products ran on the tensor cores: the split
+# contract kernel's bfloat16 launches.
+TC_LAUNCHES = graph.launch_counter({"contract_stage": 0})
 
 _SMS = 132                # streaming multiprocessors of an H100 SXM
 _SMEM_MAX = 232448        # dynamic shared memory a block may use
@@ -129,8 +138,14 @@ _SPLIT_CHUNKS = (32, 64)   # input channels per chunk
 _SPLIT_TILES = (1, 2, 4, 8)
 # The split contract kernel (csrc/contract_split.cu) shares the ring,
 # thread items, tiles and chunks; it may also run 16-block clusters (the
-# non-portable size), where the card accepts the launch.
+# non-portable size), where the card accepts the launch. In bfloat16 its
+# products run on the tensor cores: m16 x n16 units per warp of eight,
+# over tiles up to 16 x 16.
 _CONTRACT_SPLIT_S = (1, 2, 4, 8, 16)
+_TC_WARPS = 8
+_TC_US = (1, 2, 4, 8)      # units per warp
+_TC_TILES = (1, 2, 4, 8, 16)
+_TC_CHUNKS = (32, 64, 128)
 
 
 def reset_launches():
@@ -138,6 +153,7 @@ def reset_launches():
         LAUNCHES[k] = 0
         BWD_LAUNCHES[k] = 0
         ROUTES[k].update(split=0, tiled=0)
+    TC_LAUNCHES["contract_stage"] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -273,17 +289,18 @@ def _split_fits(c, o, s, itemsize):
             and (o // s) % 4 == 0 and c % ve == 0)
 
 
-def _candidates(gh, gw, c, o, itemsize, sizes, fits, geometry):
+def _candidates(gh, gw, c, o, itemsize, sizes, fits, geometry,
+                tiles=_SPLIT_TILES, chunks=_SPLIT_CHUNKS):
     """Every split launch (th, tw, s, ch) over a gh x gw tile grid whose
     16-byte copies fit (`fits`) and whose shared memory and thread items
     fit a block (`geometry`)."""
     out = []
-    for th in [t for t in _SPLIT_TILES if t < 2 * gh]:
-        for tw in [t for t in _SPLIT_TILES if t < 2 * gw]:
+    for th in [t for t in tiles if t < 2 * gh]:
+        for tw in [t for t in tiles if t < 2 * gw]:
             for s in sizes:
                 if not fits(c, o, s, itemsize):
                     continue
-                for ch in _SPLIT_CHUNKS:
+                for ch in chunks:
                     smem, r1, r2 = geometry(th, tw, o, s, ch, itemsize)
                     if smem <= _SMEM_MAX and r1 and r2:
                         out.append((th, tw, s, ch))
@@ -371,14 +388,23 @@ def _split_plan(n, h, w, c, o, itemsize):
 
 
 def _contract_split_geometry(th, tw, o, s, ch, itemsize):
-    """(shared-memory bytes, R1, R2) of a split contract launch; mirrors
-    csrc/contract_split.cu's Geo and pick_r (R = 0: the product does not
-    fit the block's threads)."""
+    """(shared-memory bytes, R1, R2) of a float32 split contract launch,
+    (shared-memory bytes, U1, U2) of a bfloat16 one; mirrors
+    csrc/contract_split.cu's Geo and pick_r (0: the product does not fit
+    the block's threads or warps). In bfloat16 the ring's weight rows
+    carry one 16-byte pad, a phase-2 chunk holds whole k16 steps, and the
+    bias slices follow as float32."""
     os_, ve = o // s, 16 // itemsize
     m1 = (th + 1) * (tw + 1)
-    stage = (m1 * (ch + ve) + ch * os_) * itemsize
+    tc = itemsize == 2
+    lw = os_ + ve if tc else os_
+    stage = (m1 * (ch + ve) + ch * lw) * itemsize
     smem = (_SPLIT_STAGES * stage + _ceil_to(m1 * (o + ve) * itemsize, 16)
-            + _ceil_to(m1 * 4, 16))
+            + _ceil_to(m1 * 4, 16) + (8 * os_ if tc else 0))
+    if tc:
+        u1, u2 = (next((u for u in _TC_US if -(-m // 16) * (os_ // 16)
+                        <= _TC_WARPS * u), 0) for m in (m1, th * tw))
+        return smem, u1, u2
     r1 = next((r for r in _SPLIT_RS
                if -(-m1 // r) * (os_ // 4) <= _SPLIT_THREADS), 0)
     r2 = next((r for r in _SPLIT_RS
@@ -388,139 +414,149 @@ def _contract_split_geometry(th, tw, o, s, ch, itemsize):
 
 def _contract_split_fits(c, o, s, itemsize):
     """The split contract kernel's 16-byte copies can take C and the O/S
-    slice, and a weight row is at most one copy per thread."""
+    slice (in bfloat16 whole n16 groups of the tensor cores), and a
+    weight row is at most one copy per thread."""
     ve = 16 // itemsize
     return (s in _CONTRACT_SPLIT_S and o % s == 0 and (o // s) % ve == 0
-            and (o // s) % 4 == 0 and (o // s) // ve <= _SPLIT_THREADS
-            and c % ve == 0)
+            and (o // s) % (16 if itemsize == 2 else 4) == 0
+            and (o // s) // ve <= _SPLIT_THREADS and c % ve == 0)
 
 
 def _contract_split_candidates(n, h, w, c, o, itemsize):
     """Every split contract launch (th, tw, s, ch) the kernel takes for a
-    stage with input (n, h, w, c): tiles of the (h/2) x (w/2) y2 grid."""
+    stage with input (n, h, w, c): tiles of the (h/2) x (w/2) y2 grid, up
+    to 16 x 16 and chunks up to 128 in bfloat16."""
+    tc = itemsize == 2
     return _candidates(h // 2, w // 2, c, o, itemsize, _CONTRACT_SPLIT_S,
-                       _contract_split_fits, _contract_split_geometry)
+                       _contract_split_fits, _contract_split_geometry,
+                       _TC_TILES if tc else _SPLIT_TILES,
+                       _TC_CHUNKS if tc else _SPLIT_CHUNKS)
 
 
 # The split contract route's plans, keyed (n, h, w, c, o, itemsize) of
 # the input: the shapes where `python3 chip_smoke.py --sweep` on an H100
 # SXM (700 W) timed every candidate beside the tiled kernel and the
-# fastest split plan beat it, each at that plan. It beat it at all 102
-# keys swept (51 shapes: the flagship contract stages at bs 1 and 4, and
-# the stages of dragon_sss.ini at bs 4 at 512^2 and 1024^2 and of
-# sphere_synthetic.ini at bs 2; in both dtypes): 1.1-2.1x at 512^2 bs 4,
-# 2.7-6.6x on the flagship 16^2 and 32^2 stages, 18-34x on dragon_sss's
-# 1024-channel 8^2 and 4^2 stages, which run clusters of 16 (as do most
-# 16^2 stages); at 1024^2, 1.03-2.1x on the 64^2 to 1024^2 stages,
-# 2.3-2.8x at 32^2, 7.9-28x on the 1024-channel 16^2 and 8^2 stages. A
-# shape of another recipe or batch size joins once a sweep has timed it.
+# fastest split plan beat it, each at that plan (51 shapes: the flagship
+# contract stages at bs 1 and 4, and the stages of dragon_sss.ini at bs 4
+# at 512^2 and 1024^2 and of sphere_synthetic.ini at bs 2; in both
+# dtypes). float32 (the CUDA cores): it beat the tiled kernel at all 51
+# keys, 1.1-2.1x at 512^2 bs 4, 2.7-6.6x on the flagship 16^2 and 32^2
+# stages, 18-34x on dragon_sss's 1024-channel 8^2 and 4^2 stages, which
+# run clusters of 16 (as do most 16^2 stages); at 1024^2, 1.03-2.1x on
+# the 64^2 to 1024^2 stages, 2.3-2.8x at 32^2, 7.9-28x on the
+# 1024-channel 16^2 and 8^2 stages. bfloat16 (the tensor cores, timed
+# with y1 written, as a training forward runs it): it beat it at all 51
+# keys, 3.8-7.6x on the stages of 16 to 64 output channels (16 x 16
+# tiles on the 512^2 and 1024^2 inputs), 5.4-18x at 128 to 512, 26-55x
+# on the 1024-channel deep stages (mostly chunks of 128). A shape of
+# another recipe or batch size joins once a sweep has timed it.
 _CONTRACT_SPLIT_TUNED = {
     # flagship stages, bs 1
-    (1, 512, 512, 16, 16, 2): (8, 8, 1, 64),
+    (1, 512, 512, 16, 16, 2): (16, 16, 1, 32),
     (1, 512, 512, 16, 16, 4): (8, 8, 1, 64),
-    (1, 512, 512, 32, 16, 2): (8, 8, 1, 64),
+    (1, 512, 512, 32, 16, 2): (16, 16, 1, 32),
     (1, 512, 512, 32, 16, 4): (8, 8, 1, 64),
-    (1, 256, 256, 16, 32, 2): (8, 8, 1, 64),
+    (1, 256, 256, 16, 32, 2): (16, 8, 1, 64),
     (1, 256, 256, 16, 32, 4): (8, 8, 1, 32),
-    (1, 256, 256, 32, 32, 2): (8, 8, 1, 64),
+    (1, 256, 256, 32, 32, 2): (16, 8, 1, 128),
     (1, 256, 256, 32, 32, 4): (8, 8, 1, 32),
-    (1, 128, 128, 32, 64, 2): (4, 8, 1, 64),
+    (1, 128, 128, 32, 64, 2): (8, 4, 1, 128),
     (1, 128, 128, 32, 64, 4): (8, 4, 1, 64),
-    (1, 128, 128, 64, 64, 2): (8, 4, 1, 64),
+    (1, 128, 128, 64, 64, 2): (4, 8, 1, 128),
     (1, 128, 128, 64, 64, 4): (4, 8, 1, 64),
-    (1, 64, 64, 64, 128, 2): (8, 2, 2, 64),
+    (1, 64, 64, 64, 128, 2): (2, 8, 2, 128),
     (1, 64, 64, 64, 128, 4): (4, 4, 2, 64),
-    (1, 64, 64, 128, 128, 2): (8, 2, 2, 64),
+    (1, 64, 64, 128, 128, 2): (2, 8, 2, 128),
     (1, 64, 64, 128, 128, 4): (4, 4, 2, 64),
-    (1, 32, 32, 128, 256, 2): (2, 2, 2, 64),
+    (1, 32, 32, 128, 256, 2): (4, 8, 8, 128),
     (1, 32, 32, 128, 256, 4): (1, 4, 2, 64),
-    (1, 32, 32, 256, 256, 2): (2, 2, 2, 64),
+    (1, 32, 32, 256, 256, 2): (4, 8, 8, 128),
     (1, 32, 32, 256, 256, 4): (4, 1, 2, 64),
-    (1, 16, 16, 256, 256, 2): (2, 8, 16, 64),
+    (1, 16, 16, 256, 256, 2): (4, 2, 8, 128),
     (1, 16, 16, 256, 256, 4): (8, 2, 16, 64),
-    (1, 16, 16, 512, 256, 2): (2, 8, 16, 64),
+    (1, 16, 16, 512, 256, 2): (2, 4, 8, 128),
     (1, 16, 16, 512, 256, 4): (8, 2, 16, 64),
     # flagship stages and dragon_sss.ini's, bs 4
-    (4, 512, 512, 16, 16, 2): (8, 8, 1, 64),
+    (4, 512, 512, 16, 16, 2): (16, 16, 1, 32),
     (4, 512, 512, 16, 16, 4): (8, 8, 1, 64),
-    (4, 512, 512, 32, 16, 2): (8, 8, 1, 64),
+    (4, 512, 512, 32, 16, 2): (16, 16, 1, 32),
     (4, 512, 512, 32, 16, 4): (8, 8, 1, 64),
-    (4, 256, 256, 16, 32, 2): (8, 8, 1, 64),
+    (4, 256, 256, 16, 32, 2): (16, 16, 1, 32),
     (4, 256, 256, 16, 32, 4): (8, 8, 1, 64),
-    (4, 256, 256, 32, 32, 2): (8, 8, 1, 64),
+    (4, 256, 256, 32, 32, 2): (16, 16, 1, 32),
     (4, 256, 256, 32, 32, 4): (8, 8, 1, 64),
-    (4, 128, 128, 32, 64, 2): (4, 8, 1, 64),
+    (4, 128, 128, 32, 64, 2): (4, 16, 1, 64),
     (4, 128, 128, 32, 64, 4): (8, 8, 2, 64),
-    (4, 128, 128, 64, 64, 2): (8, 4, 1, 64),
+    (4, 128, 128, 64, 64, 2): (4, 16, 1, 64),
     (4, 128, 128, 64, 64, 4): (8, 8, 2, 64),
-    (4, 64, 64, 64, 128, 2): (8, 4, 2, 64),
+    (4, 64, 64, 64, 128, 2): (4, 8, 1, 128),
     (4, 64, 64, 64, 128, 4): (4, 8, 2, 64),
-    (4, 64, 64, 128, 128, 2): (4, 8, 2, 64),
+    (4, 64, 64, 128, 128, 2): (8, 8, 2, 128),
     (4, 64, 64, 128, 128, 4): (8, 4, 2, 64),
-    (4, 32, 32, 128, 256, 2): (4, 4, 2, 64),
+    (4, 32, 32, 128, 256, 2): (2, 8, 2, 128),
     (4, 32, 32, 128, 256, 4): (4, 4, 2, 64),
-    (4, 32, 32, 256, 256, 2): (4, 4, 2, 64),
+    (4, 32, 32, 256, 256, 2): (2, 8, 2, 128),
     (4, 32, 32, 256, 256, 4): (4, 4, 2, 64),
-    (4, 16, 16, 256, 256, 2): (8, 8, 16, 64),
+    (4, 16, 16, 256, 256, 2): (4, 8, 8, 128),
     (4, 16, 16, 256, 256, 4): (2, 8, 8, 64),
-    (4, 16, 16, 256, 512, 2): (8, 8, 16, 64),
+    (4, 16, 16, 256, 512, 2): (8, 8, 16, 128),
     (4, 16, 16, 256, 512, 4): (4, 8, 8, 64),
-    (4, 16, 16, 512, 256, 2): (8, 8, 16, 64),
+    (4, 16, 16, 512, 256, 2): (8, 4, 8, 128),
     (4, 16, 16, 512, 256, 4): (8, 8, 16, 64),
-    (4, 16, 16, 512, 512, 2): (8, 8, 16, 64),
+    (4, 16, 16, 512, 512, 2): (8, 8, 16, 128),
     (4, 16, 16, 512, 512, 4): (8, 8, 16, 32),
-    (4, 8, 8, 512, 1024, 2): (4, 4, 16, 64),
+    (4, 8, 8, 512, 1024, 2): (4, 4, 16, 128),
     (4, 8, 8, 512, 1024, 4): (4, 4, 16, 64),
-    (4, 8, 8, 1024, 1024, 2): (4, 4, 16, 64),
+    (4, 8, 8, 1024, 1024, 2): (4, 4, 16, 128),
     (4, 8, 8, 1024, 1024, 4): (4, 4, 16, 64),
-    (4, 4, 4, 1024, 1024, 2): (2, 2, 16, 64),
+    (4, 4, 4, 1024, 1024, 2): (2, 2, 16, 128),
     (4, 4, 4, 1024, 1024, 4): (2, 2, 16, 64),
-    (4, 4, 4, 2048, 1024, 2): (2, 2, 16, 64),
+    (4, 4, 4, 2048, 1024, 2): (2, 2, 16, 128),
     (4, 4, 4, 2048, 1024, 4): (2, 2, 16, 64),
     # dragon_sss.ini at uvh = uvw = 1024, bs 4 (its 8^2 1024 -> 1024
     # stage is the key above)
-    (4, 1024, 1024, 16, 16, 2): (8, 8, 1, 64),
+    (4, 1024, 1024, 16, 16, 2): (16, 16, 1, 32),
     (4, 1024, 1024, 16, 16, 4): (8, 8, 1, 64),
-    (4, 1024, 1024, 32, 16, 2): (8, 8, 1, 64),
+    (4, 1024, 1024, 32, 16, 2): (16, 16, 1, 32),
     (4, 1024, 1024, 32, 16, 4): (8, 8, 1, 64),
-    (4, 512, 512, 16, 32, 2): (8, 8, 1, 64),
+    (4, 512, 512, 16, 32, 2): (16, 16, 1, 32),
     (4, 512, 512, 16, 32, 4): (8, 8, 1, 64),
-    (4, 512, 512, 32, 32, 2): (8, 8, 1, 64),
+    (4, 512, 512, 32, 32, 2): (16, 16, 1, 32),
     (4, 512, 512, 32, 32, 4): (8, 8, 1, 64),
-    (4, 256, 256, 32, 64, 2): (4, 8, 1, 64),
+    (4, 256, 256, 32, 64, 2): (8, 16, 1, 32),
     (4, 256, 256, 32, 64, 4): (4, 8, 1, 64),
-    (4, 256, 256, 64, 64, 2): (4, 8, 1, 64),
+    (4, 256, 256, 64, 64, 2): (8, 16, 1, 32),
     (4, 256, 256, 64, 64, 4): (4, 8, 1, 64),
-    (4, 128, 128, 64, 128, 2): (4, 8, 2, 64),
+    (4, 128, 128, 64, 128, 2): (8, 8, 1, 64),
     (4, 128, 128, 64, 128, 4): (4, 8, 2, 64),
-    (4, 128, 128, 128, 128, 2): (8, 4, 2, 64),
+    (4, 128, 128, 128, 128, 2): (8, 8, 1, 64),
     (4, 128, 128, 128, 128, 4): (8, 4, 2, 64),
-    (4, 64, 64, 128, 256, 2): (4, 4, 2, 64),
+    (4, 64, 64, 128, 256, 2): (8, 8, 2, 128),
     (4, 64, 64, 128, 256, 4): (4, 4, 2, 32),
-    (4, 64, 64, 256, 256, 2): (4, 4, 2, 64),
+    (4, 64, 64, 256, 256, 2): (4, 8, 2, 64),
     (4, 64, 64, 256, 256, 4): (4, 4, 2, 32),
-    (4, 32, 32, 256, 512, 2): (4, 2, 2, 32),
+    (4, 32, 32, 256, 512, 2): (2, 8, 2, 64),
     (4, 32, 32, 256, 512, 4): (4, 8, 8, 64),
-    (4, 32, 32, 512, 512, 2): (4, 2, 2, 32),
+    (4, 32, 32, 512, 512, 2): (2, 8, 2, 64),
     (4, 32, 32, 512, 512, 4): (4, 8, 8, 64),
-    (4, 16, 16, 512, 1024, 2): (4, 4, 8, 64),
+    (4, 16, 16, 512, 1024, 2): (8, 8, 16, 64),
     (4, 16, 16, 512, 1024, 4): (4, 4, 8, 64),
-    (4, 16, 16, 1024, 1024, 2): (4, 4, 8, 64),
+    (4, 16, 16, 1024, 1024, 2): (8, 8, 16, 64),
     (4, 16, 16, 1024, 1024, 4): (4, 4, 8, 64),
-    (4, 8, 8, 2048, 1024, 2): (4, 4, 16, 64),
+    (4, 8, 8, 2048, 1024, 2): (4, 4, 16, 128),
     (4, 8, 8, 2048, 1024, 4): (4, 4, 16, 64),
     # sphere_synthetic.ini's stages, bs 2
     (2, 128, 128, 16, 16, 2): (8, 8, 1, 64),
     (2, 128, 128, 16, 16, 4): (8, 8, 1, 64),
-    (2, 128, 128, 32, 16, 2): (8, 8, 1, 64),
+    (2, 128, 128, 32, 16, 2): (8, 8, 1, 128),
     (2, 128, 128, 32, 16, 4): (8, 8, 1, 64),
-    (2, 64, 64, 16, 32, 2): (4, 4, 1, 64),
+    (2, 64, 64, 16, 32, 2): (2, 16, 1, 64),
     (2, 64, 64, 16, 32, 4): (4, 4, 1, 32),
-    (2, 64, 64, 32, 32, 2): (2, 8, 1, 32),
+    (2, 64, 64, 32, 32, 2): (8, 4, 1, 128),
     (2, 64, 64, 32, 32, 4): (8, 4, 2, 64),
-    (2, 32, 32, 32, 32, 2): (4, 2, 1, 64),
+    (2, 32, 32, 32, 32, 2): (2, 16, 1, 128),
     (2, 32, 32, 32, 32, 4): (2, 4, 1, 64),
-    (2, 32, 32, 64, 32, 2): (4, 2, 1, 64),
+    (2, 32, 32, 64, 32, 2): (2, 8, 1, 128),
     (2, 32, 32, 64, 32, 4): (4, 1, 1, 64),
 }
 
@@ -735,6 +771,8 @@ def _launch(kind, x, w1, b1, w2, b2, slope, return_y1, plan=None,
             kind, msg(err).decode(), what, tuple(x.shape), o))
     LAUNCHES[kind] += 1
     ROUTES[kind]["tiled" if split is None else "split"] += 1
+    if split is not None and contract and is_bf16:
+        TC_LAUNCHES[kind] += 1
     return (y2, y1) if return_y1 else y2
 
 

@@ -403,27 +403,78 @@ def _measured_expand_keys():
 
 
 def test_contract_split_geometry_by_hand():
-    """Two launches' shared memory and thread items, computed by hand
-    from csrc/contract_split.cu's layout: 3 ring stages of (the y1 tile's
-    (TH+1)(TW+1) pixels x (CH + one 16-byte pad) + CH weight rows x O/S)
-    elements, the y1 tile at O + pad channels, one int per pixel."""
+    """Two launches' shared memory and thread items (float32) or warp
+    units (bfloat16), computed by hand from csrc/contract_split.cu's
+    layout: 3 ring stages of (the y1 tile's (TH+1)(TW+1) pixels x (CH +
+    one 16-byte pad) + CH weight rows x O/S, + one 16-byte pad in
+    bfloat16) elements, the y1 tile at O + pad channels, one int per
+    pixel."""
     # 2 x 4 tile, O = 256, S = 8, CH = 64, float32: 15 pixels; 15 x 8
     # channel groups = 120 phase-1 items, 8 x 8 = 64 phase-2 items.
     stage = (15 * 68 + 64 * 32) * 4
     want = 3 * stage + 15 * 260 * 4 + 64
     assert tfs._contract_split_geometry(2, 4, 256, 8, 64, 4) == (want, 1, 1)
-    # 8 x 8 tile, O = 64, S = 2, CH = 32, bfloat16: 81 pixels x 8 groups
-    # need R1 = 4 (21 x 8 = 168 items), 64 x 8 need R2 = 2 (256).
-    stage = (81 * 40 + 32 * 32) * 2
-    want = 3 * stage + tfs._ceil_to(81 * 72 * 2, 16) + tfs._ceil_to(81 * 4, 16)
-    assert tfs._contract_split_geometry(8, 8, 64, 2, 32, 2) == (want, 4, 2)
+    # 8 x 8 tile, O = 64, S = 2, CH = 32, bfloat16 (the tensor cores):
+    # weight rows of 32 + 8 elements; 81 pixels are 6 m16 tiles x 2 n16
+    # groups = 12 units over 8 warps: U1 = 2; 64 pixels 4 x 2 = 8: U2 = 1.
+    # The bias slices follow as 2 x 32 float32.
+    stage = (81 * 40 + 32 * 40) * 2
+    want = (3 * stage + tfs._ceil_to(81 * 72 * 2, 16)
+            + tfs._ceil_to(81 * 4, 16) + 2 * 32 * 4)
+    assert tfs._contract_split_geometry(8, 8, 64, 2, 32, 2) == (want, 2, 1)
     # A product no R <= 4 fits in 256 threads: 25 pixels x 64 groups.
     assert tfs._contract_split_geometry(4, 4, 256, 1, 32, 4)[1] == 0
 
 
+def test_contract_tc_geometry_by_hand():
+    """The tensor-core path's largest tile by hand: 16 x 16 y2 pixels, O
+    = 32, S = 1, CH = 64, bfloat16. The halo tile's 17 x 17 = 289 pixels
+    are 19 m16 tiles x 2 n16 groups = 38 units over 8 warps (U1 = 8); the
+    256 own pixels 16 x 2 = 32 (U2 = 4). A ring stage holds 289 x (64 + 8)
+    x elements and 64 weight rows of 32 + 8; the bias slices 2 x 32
+    float32 follow."""
+    stage = (289 * 72 + 64 * 40) * 2
+    want = 3 * stage + 289 * 40 * 2 + tfs._ceil_to(289 * 4, 16) + 256
+    assert tfs._contract_split_geometry(16, 16, 32, 1, 64, 2) == (want, 8, 4)
+    # Units beyond 8 a warp: 19 x 4 n16 groups = 76 > 64.
+    assert tfs._contract_split_geometry(16, 16, 64, 1, 64, 2)[1] == 0
+    # 16 x 16 tiles are candidates in bfloat16 alone.
+    cands = {2: tfs._contract_split_candidates(4, 64, 64, 32, 32, 2),
+             4: tfs._contract_split_candidates(4, 64, 64, 32, 32, 4)}
+    assert (16, 16, 1, 64) in cands[2] and (8, 8, 1, 128) in cands[2]
+    assert not any(16 in p[:2] or p[3] == 128 for p in cands[4])
+
+
+def test_tc_launches_count_bf16_split_contracts(fake_launch, monkeypatch):
+    """TC_LAUNCHES counts the forward launches whose products ran on the
+    tensor cores: split contract launches in bfloat16, and no float32,
+    tiled or expand launch; registered with graph (a replay adds what
+    its capture counted) and reset by reset_launches."""
+    from nlt_tpu_torch.parallel import graph
+
+    assert any(c is tfs.TC_LAUNCHES for c in graph.COUNTERS)
+    key = (1, 32, 32, 256, 256)
+    monkeypatch.setitem(tfs._CONTRACT_SPLIT_TUNED, key + (2,), (2, 2, 2, 64))
+    monkeypatch.setitem(tfs._CONTRACT_SPLIT_TUNED, key + (4,), (2, 2, 2, 64))
+    bf16 = [t.bfloat16() for t in _stage_args(1, 32, 256, 256)]
+    tfs._launch("contract_stage", *bf16, 0.3, False)
+    tfs._launch("contract_stage", *bf16, 0.3, True, split=(4, 4, 2, 32))
+    tfs._launch("contract_stage", *_stage_args(1, 32, 256, 256), 0.3, False)
+    tfs._launch("contract_stage", *bf16, 0.3, False, plan=(1, 1, 64, 64))
+    tfs._launch("expand_stage",
+                *[t.bfloat16() for t in _stage_args(1, 8, 1024, 128)], 0.3,
+                False, split=(1, 1, 1, 32))
+    assert tfs.TC_LAUNCHES == {"contract_stage": 2}
+    assert tfs.ROUTES["contract_stage"] == {"split": 3, "tiled": 1}
+    tfs.reset_launches()
+    assert tfs.TC_LAUNCHES == {"contract_stage": 0}
+
+
 @pytest.mark.parametrize("c,o,s,itemsize,fits", [
     (32, 16, 1, 4, True), (32, 16, 4, 4, True), (32, 16, 8, 4, False),
-    (32, 16, 2, 2, True), (32, 16, 4, 2, False),   # O/S = 4: 8 bytes
+    (32, 32, 2, 2, True), (32, 16, 4, 2, False),   # O/S = 4: 8 bytes
+    (32, 16, 2, 2, False),        # bf16 O/S = 8: no n16 group
+    (32, 16, 1, 2, True), (64, 256, 16, 2, True), (64, 128, 16, 2, False),
     (33, 16, 1, 4, False),                         # C rows of 132 bytes
     (32, 6, 1, 4, False), (32, 12, 2, 4, False),   # O/S no float4 groups
     (512, 256, 16, 4, True), (512, 256, 32, 4, False),
@@ -435,8 +486,8 @@ def test_contract_split_fits(c, o, s, itemsize, fits):
 
 def test_contract_split_candidates_fit_the_kernel():
     """Every candidate of every measured shape fits a block's shared
-    memory and threads, with a cluster size the kernel takes and tiles
-    no larger than the y2 grid allows."""
+    memory and threads (warps in bfloat16), with a cluster size and chunk
+    the kernel takes and tiles no larger than the y2 grid allows."""
     for n, h, w, c, o, item in _measured_contract_keys():
         cands = tfs._contract_split_candidates(n, h, w, c, o, item)
         assert cands, (h, c, o, item)
@@ -444,7 +495,8 @@ def test_contract_split_candidates_fit_the_kernel():
             smem, r1, r2 = tfs._contract_split_geometry(th, tw, o, s, ch,
                                                         item)
             assert smem <= tfs._SMEM_MAX and r1 and r2 and r2 <= r1
-            assert s in (1, 2, 4, 8, 16) and ch in tfs._SPLIT_CHUNKS
+            assert s in (1, 2, 4, 8, 16) and ch in (
+                tfs._TC_CHUNKS if item == 2 else tfs._SPLIT_CHUNKS)
             assert th < h and tw < w
 
 
@@ -601,6 +653,191 @@ def test_contract_split_indexing_matches_plain_version(rng, shape, o, plan,
     args = [torch.from_numpy(a) for a in _args(rng, shape, o)]
     y2, y1 = _emulate_contract_split(*args, plan, slope)
     want_y2, want_y1 = tfs.contract_stage_ref(*args, slope)
+    assert not torch.isnan(y2).any() and not torch.isnan(y1).any()
+    _close(y2, want_y2, TOL)
+    _close(y1, want_y1, TOL)
+
+
+# csrc/contract_split.cu's bfloat16 path, fragment by fragment: ldmatrix
+# (lane l addresses row l % 8 of 8 x 8 matrix l / 8; lane t receives row
+# t / 4, columns 2 (t % 4) and the next of each matrix, or their transpose)
+# and mma.sync m16n8k16 (PTX's fragment layouts of A, B and the float32
+# accumulators), in float64.
+
+
+def _ldsm4(buf, addr, trans):
+    """(32, 4, 2): each lane's four registers of two elements."""
+    mats = buf[addr[:, None] + torch.arange(8)].reshape(4, 8, 8)
+    if trans:
+        mats = mats.transpose(1, 2)
+    t = torch.arange(32)
+    return mats[:, (t // 4)[:, None], (2 * (t % 4))[:, None]
+                + torch.arange(2)].permute(1, 0, 2)
+
+
+def _mma(acc, a, b0, b1):
+    """acc (32, 4) += A (16 x 16) B (16 x 8) from the lanes' fragments."""
+    t = torch.arange(32)
+    gq, tq = t // 4, t % 4
+    am = torch.zeros(16, 16, dtype=torch.float64)
+    bm = torch.zeros(16, 8, dtype=torch.float64)
+    for e in range(2):
+        am[gq, 2 * tq + e] = a[:, 0, e]
+        am[gq + 8, 2 * tq + e] = a[:, 1, e]
+        am[gq, 8 + 2 * tq + e] = a[:, 2, e]
+        am[gq + 8, 8 + 2 * tq + e] = a[:, 3, e]
+        bm[2 * tq + e, gq] = b0[:, e]
+        bm[8 + 2 * tq + e, gq] = b1[:, e]
+    d = am @ bm
+    return acc + torch.stack([d[gq, 2 * tq], d[gq, 2 * tq + 1],
+                              d[gq + 8, 2 * tq], d[gq + 8, 2 * tq + 1]], 1)
+
+
+def _emulate_contract_tc(x, w1, b1, w2, b2, plan, slope):
+    """The tensor-core path's index arithmetic (Geo with item 2, the
+    loader's ring layout, each warp's units, the lanes' ldmatrix rows and
+    the accumulators' (pixel, channel)), one cluster tile and rank at a
+    time. Unwritten shared memory reads as NaN; returns (y2, y1), NaN
+    where nothing was written."""
+    n, h, w, c = x.shape
+    o = w1.shape[3]
+    th, tw, s, ch = plan
+    os_, ve, twp = o // s, 8, tw + 1
+    m1, ldx, ys, lw = (th + 1) * twp, ch + ve, o + ve, o // s + ve
+    stage = m1 * ldx + ch * lw
+    ch2 = min(4 * o, (stage // lw) & ~15)
+    ng, gh, gw = os_ // 16, h // 2, w // 2
+    k1, k2 = 4 * c, 4 * o
+    xf, w1f, w2f = (t.double().reshape(-1) for t in (x, w1, w2))
+    b1f, b2f = b1.double(), b2.double()
+    nan = float("nan")
+    y1 = torch.full((n, gh, gw, o), nan, dtype=torch.float64)
+    y2 = torch.full((n, gh, gw, o), nan, dtype=torch.float64)
+    lane = torch.arange(32)
+    lr, lc, gq, tq = lane % 16, (lane // 16) * 8, lane // 4, lane % 4
+
+    def lrelu_(z):
+        return torch.where(z >= 0, z, slope * z)
+
+    for img, r0, q0 in [(i, r, q) for i in range(n) for r in range(0, gh, th)
+                        for q in range(0, gw, tw)]:
+        nh1, nw1 = min(th + 1, gh - r0), min(twp, gw - q0)
+        nh2, nw2 = min(th, gh - r0), min(tw, gw - q0)
+        nv1, nv2 = nh1 * nw1, nh2 * nw2
+        mm = torch.arange(nv1)
+        pix = img * h * w * c + (2 * (r0 + mm // nw1) * w
+                                 + 2 * (q0 + mm % nw1)) * c
+        nu1, nu2 = -(-nv1 // 16) * ng, -(-nv2 // 16) * ng
+        tiles = []
+        for rank in range(s):
+            c0 = rank * os_
+            y1s = torch.full((m1 * ys,), nan, dtype=torch.float64)
+            for p in range(m1):
+                if p // twp >= nh1 or p % twp >= nw1:
+                    y1s[p * ys:(p + 1) * ys] = 0.0
+            acc = {}
+            for k0 in range(0, k1, ch):
+                st = torch.full((stage,), nan, dtype=torch.float64)
+                k = k0 + torch.arange(ch)
+                ok = k < k1
+                kk = k.clamp(max=k1 - 1)
+                src = kk + (kk >= 2 * c).long() * (w * c - 2 * c)
+                vals = torch.where(ok, xf[pix[:, None] + src[None, :]],
+                                   torch.zeros(()))
+                st[(mm[:, None] * ldx + torch.arange(ch)).reshape(-1)] = \
+                    vals.reshape(-1)
+                wrow = torch.where(ok[:, None], w1f.reshape(k1, o)[
+                    kk, c0:c0 + os_], torch.zeros(()))
+                st[(m1 * ldx + torch.arange(ch)[:, None] * lw
+                    + torch.arange(os_)).reshape(-1)] = wrow.reshape(-1)
+                kc = min(ch, k1 - k0)
+                for warp in range(8):
+                    for u in range(warp, nu1, 8):
+                        m = torch.clamp((u // ng) * 16 + lr, max=nv1 - 1)
+                        a1 = m * ldx + lc
+                        b1o = m1 * ldx + lr * lw + (u % ng) * 16 + lc
+                        for kk in range(0, kc, 16):
+                            a = _ldsm4(st, a1 + kk, False)
+                            b = _ldsm4(st, b1o + kk * lw, True)
+                            for f in range(2):
+                                acc[u, f] = _mma(acc.get(
+                                    (u, f), torch.zeros(32, 4,
+                                                        dtype=torch.float64)),
+                                    a, b[:, 2 * f], b[:, 2 * f + 1])
+            for (u, f), v in acc.items():
+                for hh in range(2):
+                    m = (u // ng) * 16 + gq + 8 * hh
+                    ok = m < nv1
+                    pos = (m // nw1) * twp + m % nw1
+                    chn = c0 + (u % ng) * 16 + f * 8 + 2 * tq
+                    for e in range(2):
+                        y1s[(pos * ys + chn + e)[ok]] = lrelu_(
+                            v[:, 2 * hh + e] + b1f[chn + e])[ok]
+            tiles.append(y1s)
+        # The exchange, then phase 2 per rank.
+        for rank in range(s):
+            y1s = tiles[rank].clone()
+            for peer in range(s):
+                if peer != rank:
+                    for p in range(nv1):
+                        pos = (p // nw1) * twp + p % nw1
+                        sl = slice(pos * ys + peer * os_,
+                                   pos * ys + (peer + 1) * os_)
+                        y1s[sl] = tiles[peer][sl]
+            c0 = rank * os_
+            pp = torch.arange(nv2)
+            own = (pp // nw2) * twp + pp % nw2
+            y1[img, r0 + pp // nw2, q0 + pp % nw2, c0:c0 + os_] = y1s[
+                own[:, None] * ys + c0 + torch.arange(os_)]
+            acc = {}
+            for k0 in range(0, k2, ch2):
+                rows = min(ch2, k2 - k0)
+                st = torch.full((stage,), nan, dtype=torch.float64)
+                st[(torch.arange(rows)[:, None] * lw
+                    + torch.arange(os_)).reshape(-1)] = w2f.reshape(k2, o)[
+                    k0:k0 + rows, c0:c0 + os_].reshape(-1)
+                for warp in range(8):
+                    for u in range(warp, nu2, 8):
+                        p0 = (u // ng) * 16 + lr
+                        p = torch.where(p0 < nv2, p0, 0)
+                        a2 = ((p // nw2) * twp + p % nw2) * ys + lc
+                        for kk in range(0, rows, 16):
+                            tap = (k0 + kk) // o
+                            ya = ((tap >> 1) * twp + (tap & 1)) * ys + k0 \
+                                + kk - tap * o
+                            a = _ldsm4(y1s, ya + a2, False)
+                            b = _ldsm4(st, (kk + lr) * lw + (u % ng) * 16
+                                       + lc, True)
+                            for f in range(2):
+                                acc[u, f] = _mma(acc.get(
+                                    (u, f), torch.zeros(32, 4,
+                                                        dtype=torch.float64)),
+                                    a, b[:, 2 * f], b[:, 2 * f + 1])
+            for (u, f), v in acc.items():
+                for hh in range(2):
+                    p = (u // ng) * 16 + gq + 8 * hh
+                    ok = p < nv2
+                    chn = c0 + (u % ng) * 16 + f * 8 + 2 * tq
+                    for e in range(2):
+                        y2[img, (r0 + p // nw2)[ok], (q0 + p % nw2)[ok],
+                           (chn + e)[ok]] = lrelu_(
+                            v[:, 2 * hh + e] + b2f[chn + e])[ok]
+    return y2, y1
+
+
+@pytest.mark.parametrize("shape,o,plan", [
+    ((1, 6, 10, 8), 16, (2, 2, 1, 32)),     # S = 1, ragged 3 x 5, M 9 -> 16
+    ((1, 10, 14, 24), 32, (2, 4, 2, 32)),   # S = 2, ragged, 4C = 3 chunks
+    ((2, 8, 8, 40), 64, (4, 4, 4, 64)),     # S = 4, K tail: 4C = 2.5 chunks
+    ((1, 12, 20, 16), 32, (3, 5, 1, 32)),   # tiles no power of two
+    ((1, 18, 18, 16), 16, (8, 8, 1, 64)),   # ragged 9 x 9, 81 -> 96 rows
+    ((1, 8, 8, 16), 128, (2, 2, 2, 32)),    # n16 groups, 4 O in 16 chunks
+    ((1, 34, 34, 8), 16, (16, 16, 1, 32)),  # 16 x 16 tiles, 289 -> 304
+])
+def test_contract_tc_indexing_matches_plain_version(rng, shape, o, plan):
+    args = [torch.from_numpy(a) for a in _args(rng, shape, o)]
+    y2, y1 = _emulate_contract_tc(*args, plan, 0.3)
+    want_y2, want_y1 = tfs.contract_stage_ref(*args, 0.3)
     assert not torch.isnan(y2).any() and not torch.isnan(y1).any()
     _close(y2, want_y2, TOL)
     _close(y1, want_y1, TOL)
